@@ -1,0 +1,13 @@
+"""openpose_tpu_torch: the BODY_25 pose path in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A second package beside the JAX reference `openpose_tpu`.  It follows that
+package's module layout and tensor layouts (NHWC net outputs and heatmaps,
+peaks `[N, C, K+1, 3]`, pair scores `[N, P, K, K]`) so each module can be
+tested against its JAX counterpart.  It never imports JAX.  Importing it
+compiles nothing: the CUDA kernels are built from `kernels/*.cu` on their
+first launch (`kernels/build.py`).  On CPU tensors every kernel wrapper runs
+its plain PyTorch version instead.
+"""
+
+__version__ = "0.1.0"

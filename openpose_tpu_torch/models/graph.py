@@ -1,0 +1,172 @@
+"""PyTorch executor for the OpenPose CNN graphs (VGG trunk + CPM/PAF stages).
+
+Counterpart of `openpose_tpu/models/graph.py`.  A `NetSpec` (the same JSON
+topology files) runs as an `nn.Module` over a dict of activations:
+
+* Parameters are OIHW (PyTorch's layout, also Caffe's); the JAX package keeps
+  HWIO.  `checkpoint.from_jax_params` converts between the two.
+* `forward` takes and returns NHWC like `graph.forward`; inside, activations
+  are NCHW views of channels-last memory, which is what cuDNN's tensor-core
+  convolutions want.
+* Compute dtype is float32 or bfloat16.  In bfloat16 the convolution
+  accumulates in float32 and rounds its sum to bfloat16; the float32 bias is
+  then added and the result rounded again.  JAX rounds once, after the bias:
+  `F.conv2d` cannot return a float32 sum of bfloat16 operands, and handing
+  it the bias does not help (on CUDA it adds a bfloat16 bias after the
+  convolution).  The extra rounding is within the drift that summation
+  order alone causes (tests/test_torch_graph.py, BODY_25 in bfloat16).
+  float32 convolutions run with cuDNN's TF32 switched off, set as a context
+  around the forward pass, not as a global side effect.
+* Caffe pooling uses ceil-mode output sizes with -inf padding at the bottom
+  and right, written out explicitly (PyTorch's ceil_mode drops a last window
+  that starts in the padding; Caffe's output size keeps it).
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import pathlib
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from openpose_tpu.models.caffe_proto import LayerSpec, NetSpec
+
+Params = Dict[str, Dict[str, torch.Tensor]]
+
+_SPEC_DIR = (pathlib.Path(__file__).resolve().parents[2]
+             / "openpose_tpu" / "models" / "specs")
+
+
+@functools.lru_cache(maxsize=None)
+def load_spec(name: str) -> NetSpec:
+    """Load a bundled topology spec (the JAX package's JSON files)."""
+    with open(_SPEC_DIR / f"{name}.json") as f:
+        return NetSpec.from_json(json.load(f))
+
+
+def init_params(spec: NetSpec, generator: torch.Generator) -> Params:
+    """He-normal initialization for every learnable layer (OIHW weights)."""
+    params: Params = {}
+    channels: Dict[str, int] = {spec.input: spec.input_channels}
+    for layer in spec.layers:
+        if layer.type == "Convolution":
+            c_in = channels[layer.bottoms[0]]
+            fan_in = layer.kernel * layer.kernel * c_in
+            w = torch.randn((layer.num_output, c_in, layer.kernel, layer.kernel),
+                            generator=generator)
+            params[layer.name] = {"w": w * float(np.sqrt(2.0 / fan_in)),
+                                  "b": torch.zeros(layer.num_output)}
+            for top in layer.tops:
+                channels[top] = layer.num_output
+        elif layer.type == "PReLU":
+            c = channels[layer.bottoms[0]]
+            params[layer.name] = {"slope": torch.full((c,), 0.25)}
+        elif layer.type == "Concat":
+            c = sum(channels[b] for b in layer.bottoms)
+            for top in layer.tops:
+                channels[top] = c
+        else:  # ReLU / Pooling keep channels
+            for top in layer.tops:
+                channels[top] = channels[layer.bottoms[0]]
+    return params
+
+
+def convert_caffe_blobs(spec: NetSpec, blobs: Dict[str, list]) -> Params:
+    """`caffe_proto.parse_caffemodel()` output -> OIHW params (float32).
+
+    Caffe's conv blobs are already OIHW; bias is 1-D; the PReLU slope is
+    per-channel, stored under the PReLU layer's name."""
+    params: Params = {}
+    for layer in spec.layers:
+        if layer.type == "Convolution":
+            lb = blobs[layer.name]
+            w = np.asarray(lb[0], np.float32)
+            if w.ndim != 4:
+                w = w.reshape(layer.num_output, -1, layer.kernel, layer.kernel)
+            b = (np.asarray(lb[1], np.float32).reshape(-1) if len(lb) > 1
+                 else np.zeros(layer.num_output, np.float32))
+            params[layer.name] = {"w": torch.from_numpy(w.copy()),
+                                  "b": torch.from_numpy(b.copy())}
+        elif layer.type == "PReLU":
+            slope = np.asarray(blobs[layer.name][0], np.float32).reshape(-1)
+            params[layer.name] = {"slope": torch.from_numpy(slope.copy())}
+    return params
+
+
+def _max_pool(x: torch.Tensor, layer: LayerSpec) -> torch.Tensor:
+    k, s, p = layer.kernel, layer.stride, layer.pad
+    h, w = x.shape[2], x.shape[3]
+    # Caffe ceil-mode output: ceil((dim + 2p - k)/s) + 1
+    out_h = -(-(h + 2 * p - k) // s) + 1
+    out_w = -(-(w + 2 * p - k) // s) + 1
+    pad_h = s * (out_h - 1) + k - h
+    pad_w = s * (out_w - 1) + k - w
+    if pad_h or pad_w:
+        x = F.pad(x, (p, pad_w - p, p, pad_h - p), value=float("-inf"))
+    return F.max_pool2d(x, k, s)
+
+
+class PoseNet(nn.Module):
+    """A `NetSpec` as an `nn.Module`: image NHWC -> net output NHWC float32."""
+
+    def __init__(self, spec: NetSpec, params: Params):
+        super().__init__()
+        self.spec = spec
+        self.weights = nn.ParameterDict()
+        for layer in spec.layers:
+            if layer.type not in ("Convolution", "PReLU"):
+                continue
+            for key, val in params[layer.name].items():
+                val = val.to(torch.float32)
+                if val.ndim == 4:   # conv weights in the activations' layout
+                    val = val.contiguous(memory_format=torch.channels_last)
+                self.weights[f"{layer.name}__{key}"] = nn.Parameter(
+                    val, requires_grad=False)
+
+    def param(self, layer: str, key: str) -> torch.Tensor:
+        return self.weights[f"{layer}__{key}"]
+
+    def forward(self, image: torch.Tensor,
+                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """image [N, H, W, C_in] (BGR, normalized) -> [N, H/8, W/8, C] f32."""
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be float32 or bfloat16, "
+                             f"got {compute_dtype}")
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            return self._run(image, compute_dtype)
+
+    def _run(self, image: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        # NHWC memory seen as NCHW: a channels-last tensor
+        acts = {self.spec.input: image.permute(0, 3, 1, 2).to(dtype)}
+        for layer in self.spec.layers:
+            x = acts[layer.bottoms[0]]
+            if layer.type == "Convolution":
+                w = self.param(layer.name, "w").to(dtype)
+                b = self.param(layer.name, "b")
+                if dtype == torch.float32:
+                    out = F.conv2d(x, w, b, layer.stride, layer.pad)
+                else:
+                    out = F.conv2d(x, w, None, layer.stride, layer.pad)
+                    out = (out + b[:, None, None]).to(dtype)
+            elif layer.type == "ReLU":
+                out = F.relu(x)
+            elif layer.type == "PReLU":
+                slope = self.param(layer.name, "slope").to(dtype)
+                out = torch.where(x >= 0, x, x * slope[:, None, None])
+            elif layer.type == "Pooling":
+                out = _max_pool(x, layer)
+            elif layer.type == "Concat":
+                out = torch.cat([acts[b] for b in layer.bottoms], dim=1)
+            else:
+                raise ValueError(f"unsupported layer type: {layer.type}")
+            for top in layer.tops:
+                acts[top] = out
+        return acts[self.spec.output].permute(0, 2, 3, 1).to(torch.float32)
+

@@ -1,0 +1,61 @@
+"""Model registry: the pose nets with seeded random or caffemodel weights.
+
+Counterpart of `openpose_tpu/models/zoo.py` for the pose models.  A model is
+its `NetSpec`, a `graph.PoseNet` holding the weights on a device, and its
+`PoseModelInfo`.  Random weights come from a seeded `torch.Generator`; they
+are not the JAX package's random weights (the two generators differ), so
+tests that compare the packages pass JAX weights through
+`checkpoint.from_jax_params`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import pathlib
+from typing import Optional, Union
+
+import torch
+
+from openpose_tpu.models import caffe_proto
+from openpose_tpu.params import POSE_MODEL_INFO, PoseModel, PoseModelInfo
+from openpose_tpu_torch.models import graph
+
+
+@dataclasses.dataclass
+class Model:
+    spec: caffe_proto.NetSpec
+    net: graph.PoseNet
+    info: Optional[PoseModelInfo] = None
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.net.parameters()).device
+
+    def forward(self, image: torch.Tensor,
+                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return self.net(image, compute_dtype)
+
+
+def from_params(spec: caffe_proto.NetSpec, params: graph.Params,
+                info: Optional[PoseModelInfo] = None,
+                device: Union[str, torch.device] = "cpu") -> Model:
+    return Model(spec=spec, net=graph.PoseNet(spec, params).to(device),
+                 info=info)
+
+
+def load_pose_model(model: PoseModel = PoseModel.BODY_25, seed: int = 0,
+                    device: Union[str, torch.device] = "cpu",
+                    caffemodel: Optional[str] = None) -> Model:
+    """He-normal weights from `torch.Generator().manual_seed(seed)`, or the
+    weights of a Caffe `.caffemodel` when one is given."""
+    if model.experimental:
+        raise ValueError(f"PoseModel.{model.name} has no bundled topology")
+    info = POSE_MODEL_INFO[model]
+    spec = graph.load_spec(info.spec)
+    if caffemodel is not None:
+        blobs = caffe_proto.parse_caffemodel(
+            pathlib.Path(caffemodel).read_bytes())
+        params = graph.convert_caffe_blobs(spec, blobs)
+    else:
+        params = graph.init_params(spec, torch.Generator().manual_seed(seed))
+    return from_params(spec, params, info, device)

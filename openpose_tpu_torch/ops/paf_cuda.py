@@ -1,0 +1,98 @@
+"""Wrapper of the hand-written PAF scoring kernel (`kernels/paf_score.cu`).
+
+`paf_scores_fused` is the port of the TPU kernel
+`openpose_tpu/ops/paf_pallas.py::paf_scores_fused`.  On CUDA tensors it
+launches the kernel on the current stream, or raises; it never falls back.
+On CPU tensors it runs the plain version, `paf.paf_scores_multiscale_reference`.
+This is the one place that routes between the two.
+`paf_scores_fused.launches` counts the kernel launches.
+
+Per call the wrapper checks shapes, dtypes, devices and layout, which needs
+no host sync.  The values of `pairs` and `map_idx` are checked where the
+tables are built (`paf.pair_tables`); the kernel scores NaN for a pair whose
+entries index outside the peaks or the maps, and never reads out of bounds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+
+from openpose_tpu_torch.kernels import build
+from openpose_tpu_torch.ops import paf
+
+MAX_PEAKS = 128      # one thread per B peak along a CTA's x dimension
+MAX_SCALES = 8
+
+
+def _check_inputs(sources, peaks, pairs, map_idx) -> None:
+    device = peaks.device
+    if not 1 <= len(sources) <= MAX_SCALES:
+        raise ValueError(f"1..{MAX_SCALES} scales supported, got {len(sources)}")
+    for name, t, dtype in (("peaks", peaks, torch.float32),
+                           ("pairs", pairs, torch.int32),
+                           ("map_idx", map_idx, torch.int32)):
+        if t.device != device or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} on {device}, "
+                             f"got {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if peaks.ndim != 4 or peaks.shape[-1] != 3:
+        raise ValueError(f"peaks must be [N, parts, K+1, 3], got {tuple(peaks.shape)}")
+    k = peaks.shape[2] - 1
+    if not 1 <= k <= MAX_PEAKS:
+        raise ValueError(f"max_peaks {k} outside 1..{MAX_PEAKS}")
+    if pairs.ndim != 2 or pairs.shape[1] != 2 or map_idx.shape != pairs.shape:
+        raise ValueError("pairs and map_idx must both be [P, 2]")
+    c = sources[0].shape[3]
+    for src in sources:
+        if src.device != device or src.dtype != torch.float32:
+            raise ValueError(f"sources must be float32 on {device}")
+        if src.ndim != 4 or src.shape[0] != peaks.shape[0] or src.shape[3] != c:
+            raise ValueError(f"sources must be [N, h, w, {c}], "
+                             f"got {tuple(src.shape)}")
+
+
+def paf_scores_fused(sources: Sequence[torch.Tensor],
+                     scale_ratios: Sequence[float],
+                     target_hw: Tuple[int, int], peaks: torch.Tensor,
+                     pairs: torch.Tensor, map_idx: torch.Tensor,
+                     inter_threshold: float, inter_min_above_threshold: float,
+                     default_nms_threshold: float) -> torch.Tensor:
+    """[N, P, K, K] pair scores from per-scale NHWC net outputs
+    [N, h_s, w_s, C], peaks [N, parts, K+1, 3] (K <= 128), and int32
+    pairs / absolute map_idx [P, 2]."""
+    if not peaks.is_cuda:
+        return paf.paf_scores_multiscale_reference(
+            sources, scale_ratios, target_hw, peaks, pairs, map_idx,
+            inter_threshold, inter_min_above_threshold, default_nms_threshold)
+    _check_inputs(sources, peaks, pairs, map_idx)
+    n, parts, k = peaks.shape[0], peaks.shape[1], peaks.shape[2] - 1
+    p = pairs.shape[0]
+    th, tw = target_hw
+    # the kernel reads whole channel planes: NCHW (a copy of the low-res
+    # maps, 9.4 MB at batch 8, 368x656)
+    planes = [src.permute(0, 3, 1, 2).contiguous() for src in sources]
+    factors = paf._scale_factors(sources, scale_ratios, target_hw)
+    out = torch.empty((n, p, k, k), dtype=torch.float32, device=peaks.device)
+    ns = len(planes)
+    lib = build.library()
+    code = lib.paf_score_launch(
+        (ctypes.c_void_p * ns)(*[t.data_ptr() for t in planes]),
+        (ctypes.c_int * ns)(*[t.shape[2] for t in planes]),
+        (ctypes.c_int * ns)(*[t.shape[3] for t in planes]),
+        (ctypes.c_double * ns)(*[f[0] for f in factors]),
+        (ctypes.c_double * ns)(*[f[1] for f in factors]),
+        ns, planes[0].shape[1], peaks.data_ptr(), pairs.data_ptr(),
+        map_idx.data_ptr(), out.data_ptr(), n, parts, p, k, th, tw,
+        float(inter_threshold), float(inter_min_above_threshold),
+        float(default_nms_threshold), peaks.device.index or 0,
+        torch.cuda.current_stream(peaks.device).cuda_stream)
+    build.check(lib, code, "paf_score_kernel launch")
+    paf_scores_fused.launches += 1
+    return out
+
+
+paf_scores_fused.launches = 0

@@ -1,0 +1,138 @@
+"""Pose extraction pipeline: image -> people keypoints.
+
+Counterpart of `openpose_tpu/pose/extractor.py`.  Device side, per frame:
+per-scale resize + normalize -> CNN -> resize-and-merge of the part
+channels -> NMS -> PAF pair scoring (the CUDA kernel on a card).  Host side:
+greedy people assembly (`openpose_tpu.ops.assembly`, shared with the JAX
+package).  Geometry follows PoseExtractorCaffe::forwardPass: the merge
+target is the scale-0 net input size, and the NMS offset is
+0.5 / scale_net_to_output.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from openpose_tpu.io import json_io
+from openpose_tpu.ops import assembly
+from openpose_tpu.params import (
+    POSE_MAX_PEOPLE, PoseModel, default_connect_params)
+from openpose_tpu.pose import scaler
+from openpose_tpu_torch.models.zoo import Model
+from openpose_tpu_torch.ops import nms, paf, resize
+
+
+@dataclasses.dataclass
+class PosePrediction:
+    """Keypoints in input-image pixel coordinates."""
+
+    keypoints: np.ndarray          # [people, parts, 3] (x, y, score)
+    scores: np.ndarray             # [people]
+    peaks: Optional[np.ndarray] = None      # [parts, K+1, 3] net-input px
+    scale_net_to_output: float = 1.0
+    net_output_size: Tuple[int, int] = (0, 0)   # (w, h)
+    scale_input_to_net: Tuple[float, ...] = ()
+    net_input_sizes: Tuple[Tuple[int, int], ...] = ()   # [(w, h), ...]
+
+    def people_json(self) -> dict:
+        """The frame's people JSON (`openpose_tpu.io.json_io` schema)."""
+        return json_io.people_json(pose_keypoints=self.keypoints)
+
+
+class PoseExtractor:
+    """Multi-person 2D pose extractor for one pose model."""
+
+    def __init__(self, model: Model,
+                 device: Union[str, torch.device, None] = None,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        self.device = torch.device(device) if device is not None \
+            else model.device
+        model.net.to(self.device)
+        self.model = model
+        self.info = model.info
+        self.compute_dtype = compute_dtype
+        self.connect = default_connect_params(PoseModel(self.info.name))
+        self.pairs, self.map_idx = paf.pair_tables(self.info)
+        self._pairs_dev = torch.from_numpy(self.pairs).to(self.device)
+        self._map_idx_dev = torch.from_numpy(self.map_idx).to(self.device)
+
+    @torch.inference_mode()
+    def run_device(self, image: torch.Tensor, plan: scaler.ScalePlan,
+                   nms_offset: float, injected: Optional[torch.Tensor] = None):
+        """image [1, H, W, 3] BGR float 0..255 on the device; injected: an
+        optional [1, h/8, w/8, C] net output that replaces the CNN (the
+        reference's Datum::poseNetOutput hook).  Returns (peaks [1, parts,
+        K+1, 3], scores [1, P, K, K])."""
+        num_parts = self.info.num_parts
+        target_w, target_h = plan.net_input_sizes[0]
+        if injected is not None:
+            sources = [injected.to(torch.float32)]
+        else:
+            sources = []
+            for (w, h), s in zip(plan.net_input_sizes, plan.scale_input_to_net):
+                net_in = resize.normalize_vgg(
+                    resize.resize_fixed_aspect(image, s, (h, w)))
+                sources.append(self.model.forward(net_in, self.compute_dtype))
+        merged_parts = resize.upsample_merge(
+            [s[..., :num_parts] for s in sources],
+            list(plan.scale_input_to_net), (target_h, target_w))
+        cp = self.connect
+        peaks = nms.nms(merged_parts, cp.nms_threshold, POSE_MAX_PEOPLE,
+                        offset=(nms_offset, nms_offset))
+        scores = paf.paf_scores_multiscale(
+            sources, plan.scale_input_to_net, (target_h, target_w), peaks,
+            self._pairs_dev, self._map_idx_dev, cp.inter_threshold,
+            cp.inter_min_above_threshold, cp.nms_threshold)
+        return peaks, scores
+
+    def assemble(self, peaks_np: np.ndarray, scores_np: np.ndarray,
+                 scale_net_to_output: float):
+        """Host tail for one frame (device outputs -> people)."""
+        return assembly.connect_body_parts(
+            scores_np, peaks_np, self.pairs, self.info.num_parts,
+            self.connect.min_subset_cnt, self.connect.min_subset_score,
+            scale_net_to_output)
+
+    def forward(self, image: np.ndarray,
+                net_resolution: Tuple[int, int] = (-1, 368),
+                scale_number: int = 1, scale_gap: float = 0.25,
+                net_output: Optional[np.ndarray] = None) -> PosePrediction:
+        """image: [H, W, 3] uint8/float BGR.  net_output: optional
+        [h/8, w/8, C] net output that bypasses the CNN."""
+        if image.ndim != 3 or image.shape[-1] != 3:
+            raise ValueError(
+                f"input image must be [H, W, 3] BGR, got shape {image.shape}")
+        in_h, in_w = image.shape[:2]
+        plan = scaler.extract_scales((in_w, in_h), net_resolution,
+                                     scale_number, scale_gap)
+        # scale_net_to_output (poseExtractorCaffe.cpp:306-311)
+        net_out_w, net_out_h = plan.net_input_sizes[0]
+        s_prod_to_net = scaler.resize_get_scale_factor(
+            (in_w, in_h), (net_out_w, net_out_h))
+        net_size = (int(s_prod_to_net * in_w + 0.5),
+                    int(s_prod_to_net * in_h + 0.5))
+        scale_net_to_output = scaler.resize_get_scale_factor(
+            net_size, (in_w, in_h))
+        nms_offset = float(0.5 / scale_net_to_output)
+
+        img = torch.tensor(np.asarray(image, np.float32)[None],
+                           device=self.device)
+        injected = None
+        if net_output is not None:
+            injected = torch.tensor(np.asarray(net_output, np.float32)[None],
+                                    device=self.device)
+        peaks, scores = self.run_device(img, plan, nms_offset, injected)
+        peaks_np = peaks[0].cpu().numpy()
+        scores_np = scores[0].cpu().numpy()
+        keypoints, person_scores = self.assemble(peaks_np, scores_np,
+                                                 scale_net_to_output)
+        return PosePrediction(
+            keypoints=keypoints, scores=person_scores, peaks=peaks_np,
+            scale_net_to_output=scale_net_to_output,
+            net_output_size=(net_out_w, net_out_h),
+            scale_input_to_net=tuple(plan.scale_input_to_net),
+            net_input_sizes=tuple(plan.net_input_sizes))

@@ -1,0 +1,125 @@
+"""Synthetic inputs with known people, in numpy only.
+
+* `make_targets`: a BODY-model net output that encodes given keypoints:
+  Gaussian part maps, background, and unit-vector limb bands in the PAF
+  channels.  The numpy twin of `openpose_tpu.train.make_targets`; fed to
+  `PoseExtractor.forward(net_output=...)` it must assemble exactly the
+  people placed.
+* `random_people`: keypoints of standing people spread across a frame,
+  `openpose_tpu.scenes.random_people` reused as is.
+* `render_scene_image`: a BGR frame of stick figures (disks at the joints,
+  lines along the limbs) for driving the CNN path; a numpy stand-in for
+  `openpose_tpu.scenes.render_scene_image`, which needs OpenCV.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+
+from openpose_tpu.scenes import BODY25_DRAW_PAIRS, random_people
+
+__all__ = ["make_targets", "random_people", "render_scene_image"]
+
+
+def make_targets(keypoints: np.ndarray, pairs: np.ndarray,
+                 map_idx: np.ndarray, hw: Tuple[int, int], num_parts: int,
+                 num_channels: int, stride: int = 8, sigma: float = 7.0,
+                 paf_width: float = 1.0) -> np.ndarray:
+    """keypoints [B, people, parts, 3] in input pixels (score > 0 = valid)
+    -> [B, H/stride, W/stride, C] float32: parts, background, PAFs."""
+    kp = np.asarray(keypoints, np.float32)
+    h, w = hw[0] // stride, hw[1] // stride
+    grid_y = ((np.arange(h, dtype=np.float32) + 0.5) * stride - 0.5)[:, None]
+    grid_x = ((np.arange(w, dtype=np.float32) + 0.5) * stride - 0.5)[None, :]
+    kx, ky, kv = kp[..., 0], kp[..., 1], kp[..., 2] > 0   # [B, P, parts]
+
+    # part maps: max over people of exp(-d^2 / 2 sigma^2)
+    d2 = ((grid_x - kx[..., None, None]) ** 2
+          + (grid_y - ky[..., None, None]) ** 2)
+    g = np.where(kv[..., None, None], np.exp(-d2 / (2.0 * sigma * sigma)), 0.0)
+    conf = g.max(axis=1).transpose(0, 2, 3, 1)            # [B, h, w, parts]
+    bkg = np.clip(1.0 - conf.max(axis=-1, keepdims=True), 0.0, 1.0)
+
+    # PAFs: the unit limb vector within paf_width * stride of the segment,
+    # extended by one cell past both joints, averaged over covering people
+    pa, pb = pairs[:, 0], pairs[:, 1]
+    ax, ay, bx, by = kx[:, :, pa], ky[:, :, pa], kx[:, :, pb], ky[:, :, pb]
+    pv = kv[:, :, pa] & kv[:, :, pb]
+    vx, vy = bx - ax, by - ay
+    norm = np.sqrt(vx * vx + vy * vy)
+    nz = norm > 1e-3
+    ux = np.where(nz, vx / np.maximum(norm, 1e-3), 0.0)[..., None, None]
+    uy = np.where(nz, vy / np.maximum(norm, 1e-3), 0.0)[..., None, None]
+    px = grid_x - ax[..., None, None]
+    py = grid_y - ay[..., None, None]
+    along = px * ux + py * uy
+    perp = np.abs(px * uy - py * ux)
+    margin = paf_width * stride
+    on_limb = ((along >= -margin) & (along <= norm[..., None, None] + margin)
+               & (perp <= paf_width * stride)
+               & (pv & nz)[..., None, None])
+    denom = np.maximum(on_limb.sum(axis=1), 1).astype(np.float32)
+    paf_x = np.where(on_limb, ux, 0.0).sum(axis=1) / denom  # [B, pairs, h, w]
+    paf_y = np.where(on_limb, uy, 0.0).sum(axis=1) / denom
+
+    off = num_parts + 1
+    paf = np.zeros((kp.shape[0], num_channels - off, h, w), np.float32)
+    paf[:, map_idx[:, 0] - off] = paf_x
+    paf[:, map_idx[:, 1] - off] = paf_y
+    return np.concatenate([conf, bkg, paf.transpose(0, 2, 3, 1)],
+                          axis=-1).astype(np.float32)
+
+
+def _hue_bgr(idx: int, total: int, s: float = 1.0, v: float = 1.0):
+    """BGR colour of hue idx/total on the HSV wheel."""
+    hh = 6.0 * idx / total
+    c = v * s
+    x = c * (1 - abs(hh % 2 - 1))
+    r, g, b = [(c, x, 0), (x, c, 0), (0, c, x), (0, x, c), (x, 0, c),
+               (c, 0, x)][int(hh) % 6]
+    m = v - c
+    return np.array([b + m, g + m, r + m]) * 255.0
+
+
+def _stroke(img: np.ndarray, p0: np.ndarray, p1: np.ndarray, radius: float,
+            color: np.ndarray) -> None:
+    """Paint the pixels within `radius` of segment p0-p1 (a disk if p0 == p1)."""
+    h, w = img.shape[:2]
+    lo = np.floor(np.minimum(p0, p1) - radius).astype(int)
+    hi = np.ceil(np.maximum(p0, p1) + radius).astype(int) + 1
+    x_lo, y_lo = max(lo[0], 0), max(lo[1], 0)
+    x_hi, y_hi = min(hi[0], w), min(hi[1], h)
+    if x_lo >= x_hi or y_lo >= y_hi:
+        return
+    ys, xs = np.mgrid[y_lo:y_hi, x_lo:x_hi].astype(np.float32)
+    d = p1 - p0
+    t = np.clip(((xs - p0[0]) * d[0] + (ys - p0[1]) * d[1])
+                / max(float(d @ d), 1e-6), 0.0, 1.0)
+    dist2 = (xs - p0[0] - t * d[0]) ** 2 + (ys - p0[1] - t * d[1]) ** 2
+    img[y_lo:y_hi, x_lo:x_hi][dist2 <= radius * radius] = color
+
+
+def render_scene_image(people: np.ndarray, frame_hw: Tuple[int, int],
+                       rng: Optional[np.random.RandomState] = None,
+                       background_noise: float = 8.0) -> np.ndarray:
+    """[H, W, 3] uint8 BGR image of [people, 25, 3] skeletons: limbs as
+    2 px lines coloured by pair, joints as radius-4 disks coloured by part."""
+    h, w = frame_hw
+    img = np.zeros((h, w, 3), np.float32)
+    if rng is not None and background_noise > 0:
+        img[:] = np.clip(rng.normal(24, background_noise, (h, w, 3)), 0, 64)
+    n_parts = people.shape[1] if people.size else 25
+    for person in people:
+        pts = person[:, :2].astype(np.float32)
+        for li, (a, b) in enumerate(BODY25_DRAW_PAIRS):
+            if a < n_parts and b < n_parts and min(person[a, 2],
+                                                    person[b, 2]) > 0:
+                _stroke(img, pts[a], pts[b], 1.0,
+                        _hue_bgr(li, len(BODY25_DRAW_PAIRS), 0.55, 0.67))
+        for part in range(n_parts):
+            if person[part, 2] > 0:
+                _stroke(img, pts[part], pts[part], 4.0,
+                        _hue_bgr(part, n_parts))
+    return np.clip(img, 0, 255).astype(np.uint8)
