@@ -12,17 +12,32 @@ with a non-zero exit when it fails:
 3. kernel: the PAF scoring kernel against its plain PyTorch version, both
    on the card, on small scenes and at the full BODY_25 shape (batch 8, 26
    pairs, K = 127, 46x82 low-res maps); both timed with CUDA events;
-4. main path: BODY_25 (seeded random weights) through `PoseExtractor` on
+4. sampler: the bicubic sampling kernel against its plain version on the
+   JAX suite's scene, a non-integer scale, a ragged sample count, planes
+   too large for shared memory and the profile shape (8 frames x 26 pairs
+   x 403,225 samples at 46x82); the profile shape is timed;
+5. main path: BODY_25 (seeded random weights) through `PoseExtractor` on
    720x1280 frames at net resolution 368x656 in float32 and bfloat16, and
    through batch-8 `PoseInference`, timed; the PAF kernel's launch count in
-   this phase must be > 0; a per-stage breakdown and a CPU-vs-GPU check of
-   the CNN follow;
-5. injection: a synthetic BODY_25 net output with known people goes
+   this phase must be > 0; a per-stage breakdown (with the sampled PAF
+   backend timed against the fused one at K = 127) and a CPU-vs-GPU check
+   of the CNN follow;
+6. people-capped multi-scale: batch-4 `PoseInference` at 4 scales of
+   736x1312 with a 16-peak budget, on pre-sized frames and on 1080x1920
+   raw frames; the sampler must launch and the fused kernel must not; the
+   sampler is held to its plain version on this path's tensors, and the
+   PAF stage is timed routed (sampled) against forced fused;
+7. whole body: BODY_25 + FACE + HAND at 720x1280, batch 4, people cap 8,
+   timed per stage; the batched face and hand keypoints are held to the
+   per-crop extractors, and injected people must come back with face and
+   hand crops around them;
+8. injection: a synthetic BODY_25 net output with known people goes
    through `PoseExtractor.forward(net_output=...)` and must assemble exactly
    those people, written out as people JSON.
 
 The line before the last is the kernel summary, the last line
 {"ok": true, "device": {...}}.  Details go to build/chip_smoke/chip_smoke.json.
+About 3 minutes on one H100, the build included.
 """
 
 from __future__ import annotations
@@ -80,6 +95,36 @@ def host_ms(fn, iters):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def device_busy(fn, iters):
+    """torch.profiler trace of iters calls of fn (work that ends in a host
+    sync): the share of the host's wall time in which the card ran kernels
+    or copies, and the five kernels with the most device time per call.
+    None where the trace holds no device events.  The profiler's own cost
+    lengthens the wall time, so the share is a lower bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    if not by_name:
+        return None
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"busy_share": sum(by_name.values()) / wall_us,
+            "wall_ms_per_call": wall_us / iters / 1e3,
+            "top_kernels_ms_per_call": [(name[:80], us / iters / 1e3)
+                                        for name, us in top]}
+
+
 def paf_scene(rng, counts, max_peaks, n, hw_low, n_channels, near_pair=False):
     """Random low-res PAF maps and peaks; pairs chain the parts."""
     import numpy as np
@@ -97,6 +142,26 @@ def paf_scene(rng, counts, max_peaks, n, hw_low, n_channels, near_pair=False):
     if near_pair:   # close-keypoint fallback: |AB| < sqrt(W*H)/150
         peaks[0, 1, 1, :2] = peaks[0, 0, 1, :2] + 0.3
     return src, peaks, (th, tw)
+
+
+def reset_launches():
+    """Set every kernel wrapper's launch count to 0."""
+    from openpose_tpu_torch.ops import paf_cuda
+    paf_cuda.paf_scores_fused.launches = 0
+    paf_cuda.sample_bicubic.launches = 0
+
+
+def read_launches(path, *must_launch):
+    """Every wrapper's launch count since `reset_launches`; each wrapper in
+    must_launch must have launched on this path."""
+    from openpose_tpu_torch.ops import paf_cuda
+    counts = {w.__name__: w.launches for w in (paf_cuda.paf_scores_fused,
+                                                paf_cuda.sample_bicubic)}
+    log(f"{path} kernel launches: {counts}")
+    for wrapper in must_launch:
+        assert counts[wrapper.__name__] > 0, \
+            f"the {path} did not launch {wrapper.__name__}"
+    return counts
 
 
 def kernel_phase(device, info, full_shape=(8, 46, 82, 127)):
@@ -191,6 +256,63 @@ def kernel_phase(device, info, full_shape=(8, 46, 82, 127)):
             "four_scales_ms": ms4, "four_scales_plain_ms": plain_ms4}
 
 
+def sampler_phase(device, profile_shape=(8, 26, 403_225, 46, 82)):
+    """The sampling kernel against its plain version, both on the device.
+    Returns the summary dict; the profile shape is timed."""
+    import numpy as np
+    import torch
+    from openpose_tpu_torch.ops import paf, paf_cuda
+
+    rng = np.random.RandomState(11)
+
+    def case(name, n, p, hs, ws, s, scale_h, scale_w, edges=False,
+             outside=False):
+        th, tw = int(round(hs * scale_h)), int(round(ws * scale_w))
+        low = torch.from_numpy(rng.uniform(-1, 1, (n, p, 2, hs, ws))
+                               .astype(np.float32)).to(device)
+        my = rng.randint(0, th, (n, p, s)).astype(np.int32)
+        mx = rng.randint(0, tw, (n, p, s)).astype(np.int32)
+        if edges:      # the grid's first and last pixels
+            my[..., :2], mx[..., :2] = (0, th - 1), (0, tw - 1)
+        if outside:    # coordinates off the grid read the clamped taps
+            my[..., -2:], mx[..., -2:] = (-9, th + 9), (tw + 9, -9)
+        args = (low, torch.from_numpy(my).to(device),
+                torch.from_numpy(mx).to(device), scale_h, scale_w)
+        got = paf_cuda.sample_bicubic(*args)
+        want = paf.sample_bicubic_reference(*args)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        mismatches = sum(int((g != w).sum()) for g, w in zip(got, want))
+        log(f"sampler case {name} N={n} P={p} {hs}x{ws} S={s} "
+            f"scale=({scale_h}, {scale_w}): max_abs_err={err} "
+            f"mismatches={mismatches} tol={KERNEL_TOL}")
+        assert err <= KERNEL_TOL, name
+        return err, args
+
+    max_err = 0.0
+    # the JAX suite's scene (tests/test_ops.py TestPafPallasKernel)
+    for name, shape in (
+            ("jax_suite", (1, 3, 12, 16, 700, 8.0, 8.0, True)),
+            # the 0.75 scale of a 4-scale 736x1312 plan: 69x123 maps,
+            # 68 KB of planes staged above the 48 KB default
+            ("scale_0.75", (2, 26, 69, 123, 6400, 8.0 / 0.75, 8.0 / 0.75)),
+            # S not a multiple of the 2048-sample block, coordinates off
+            # the grid
+            ("ragged_S", (2, 5, 46, 82, 3 * 2048 + 77, 8.0, 8.0, True, True)),
+            # scale 0 of that plan: 92x164 maps (121 KB) read through L1
+            ("unstaged", (2, 26, 92, 164, 6400, 8.0, 8.0))):
+        err, _ = case(name, *shape)
+        max_err = max(max_err, err)
+    n, p, s, hs, ws = profile_shape
+    err, args = case("profile", n, p, hs, ws, s, 8.0, 8.0)
+    max_err = max(max_err, err)
+    ms = timed(lambda: paf_cuda.sample_bicubic(*args), 3, 20, device)
+    plain_ms = timed(lambda: paf.sample_bicubic_reference(*args), 1, 3, device)
+    log(f"sampler time profile {profile_shape}: kernel_ms={ms} "
+        f"plain_ms={plain_ms}")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "profile_shape": list(profile_shape)}
+
+
 def scene_frames(rng, count, frame_hw, n_people=3):
     import numpy as np
     from openpose_tpu_torch import synthetic
@@ -212,7 +334,7 @@ def main_path_phase(device, model, frame_hw=(720, 1280), net_h=368, batch=8,
     rng = np.random.RandomState(0)
     frames = scene_frames(rng, 3, frame_hw)
     res = {}
-    paf_cuda.paf_scores_fused.launches = 0
+    reset_launches()
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         extractor = PoseExtractor(model, device=device, compute_dtype=dtype)
         people = []
@@ -249,6 +371,9 @@ def main_path_phase(device, model, frame_hw=(720, 1280), net_h=368, batch=8,
             pk, sc = inference.fetch(*inference(images))
             return [inference.assemble(pk[b], sc[b]) for b in range(batch)]
         ms_e2e = host_ms(end_to_end, iters)
+        if name == "bf16" and device.type == "cuda":
+            res["trace_bf16_end_to_end"] = trace = device_busy(end_to_end, 2)
+            log(f"trace, batch-8 bf16 end to end: {json.dumps(trace)}")
         res[f"inference_{name}"] = {
             "batch": batch, "ms_per_batch_device": ms_device,
             "fps_device": batch * 1e3 / ms_device,
@@ -284,10 +409,7 @@ def main_path_phase(device, model, frame_hw=(720, 1280), net_h=368, batch=8,
     log(f"batch-1 bf16 latency: device {lat_device} ms; with fetch "
         f"{lat_fetch} ms; with fetch + assembly median {np.median(lat)} ms, "
         f"min {np.min(lat)} ms")
-    launches = paf_cuda.paf_scores_fused.launches
-    log(f"main path PAF kernel launches: {launches}")
-    assert launches > 0, "the main path did not launch the PAF kernel"
-    res["launches"] = launches
+    res["launches"] = read_launches("main path", paf_cuda.paf_scores_fused)
     res["breakdown"] = stage_breakdown(model, batch_frames, device, iters)
     res["cnn_cpu_vs_gpu"] = cnn_cpu_check(model, device)
     return res
@@ -333,10 +455,328 @@ def stage_breakdown(model, frames, device, iters):
         got = paf_cuda.paf_scores_fused(*args)
         want = paf.paf_scores_multiscale_reference(*args)
         out["paf_main_path_max_abs_err"] = float((got - want).abs().max())
+        # the routing question at K = 127: the sampled backend (the
+        # sampler kernel inside torch ops) on the same peaks
+        sampled = lambda: paf.paf_scores_multiscale(*args, use_fused=False)
+        out["paf_sampled_k127"] = timed(sampled, 1, 3, device)
+        out.update(backend_agreement(got, sampled(), "k127"))
         out["peaks_per_part_mean"] = float(peaks[:, :, 0, 0].mean())
     log("stage breakdown at batch 8 (ms): " + json.dumps(out))
     assert out["paf_main_path_max_abs_err"] <= KERNEL_TOL
     return out
+
+
+def backend_agreement(fused, sampled, tag):
+    """How far the fused and sampled backends' scores are apart on one
+    path: two tap formulas equal in exact arithmetic, so they differ in
+    the last bits, and a line sample sitting on the threshold may flip."""
+    diff = (fused - sampled).abs()
+    return {f"backends_max_abs_diff_{tag}": float(diff.max()),
+            f"backends_share_above_1e-4_{tag}": float((diff > 1e-4).float()
+                                                      .mean())}
+
+
+def sampler_on_path(inference, sources, peaks):
+    """The sampler kernel against its plain version on the sampled
+    backend's own inputs for one path: every pair's x/y planes of each
+    scale at every line sample of the path's peaks."""
+    from openpose_tpu_torch.ops import paf, paf_cuda
+    geo = paf._line_geometry(peaks, inference.pairs, inference.net_hw)
+    err, mismatches, shapes = 0.0, 0, []
+    for args in paf.sampler_args(sources, inference.plan.scale_input_to_net,
+                                 inference.net_hw, geo, inference.map_idx):
+        got = paf_cuda.sample_bicubic(*args)
+        want = paf.sample_bicubic_reference(*args)
+        err = max(err, max(float((g - w).abs().max())
+                           for g, w in zip(got, want)))
+        mismatches += sum(int((g != w).sum()) for g, w in zip(got, want))
+        shapes.append(list(args[0].shape) + [args[1].shape[2]])
+    log(f"sampler on the path's tensors {shapes}: max_abs_err={err} "
+        f"mismatches={mismatches} tol={KERNEL_TOL}")
+    assert err <= KERNEL_TOL
+    return {"max_abs_err": err, "mismatches": mismatches, "shapes": shapes}
+
+
+def people_capped_phase(device, model, batch=4, net_hw=(736, 1312),
+                        frame_hw=(1080, 1920), iters=5):
+    """The people-capped multi-scale path (4 scales, 16-peak budget), on
+    pre-sized and on raw frames: the sampler carries its PAF stage."""
+    import numpy as np
+    import torch
+    from openpose_tpu_torch.ops import paf, paf_cuda
+    from openpose_tpu_torch.parallel.inference import PoseInference
+
+    rng = np.random.RandomState(1)
+    inputs = {"presized": (None, scene_frames(rng, batch, net_hw)),
+              "raw": (frame_hw, scene_frames(rng, batch, frame_hw))}
+    res, runs = {}, {}
+    reset_launches()
+    for name, (fhw, frames) in inputs.items():
+        inference = PoseInference(model, net_hw=net_hw, device=device,
+                                  max_peaks=16, scale_number=4,
+                                  scale_gap=0.25, frame_hw=fhw)
+        images = torch.from_numpy(frames).to(device)
+        peaks, scores = inference(images)
+        assert peaks.shape == (batch, 25, 17, 3)
+        assert scores.shape == (batch, 26, 16, 16)
+        assert bool(torch.isfinite(peaks).all() & torch.isfinite(scores).all())
+        ms_device = timed(lambda: inference(images), 1, iters, device)
+        ms_fetch = host_ms(lambda: inference.fetch(*inference(images)), iters)
+        pk, sc = inference.fetch(peaks, scores)
+        people = [len(inference.assemble(pk[b], sc[b])[0])
+                  for b in range(batch)]
+        ms_assembly = host_ms(lambda: [inference.assemble(pk[b], sc[b])
+                                       for b in range(batch)], 3)
+
+        def end_to_end():
+            pk, sc = inference.fetch(*inference(images))
+            return [inference.assemble(pk[b], sc[b]) for b in range(batch)]
+        ms_e2e = host_ms(end_to_end, iters)
+        res[name] = {
+            "batch": batch, "input_hw": list(frames.shape[1:3]),
+            "net_input_sizes": [list(s) for s in inference.plan.net_input_sizes],
+            "ms_per_batch_device": ms_device,
+            "fps_device": batch * 1e3 / ms_device,
+            "ms_per_batch_with_fetch": ms_fetch,
+            "ms_assembly_per_batch": ms_assembly,
+            "ms_per_batch_end_to_end": ms_e2e,
+            "fps_end_to_end": batch * 1e3 / ms_e2e,
+            "people_per_frame": people,
+            "peaks_per_part_mean": float(peaks[:, :, 0, 0].mean())}
+        if name == "presized" and device.type == "cuda":
+            res["trace_presized_end_to_end"] = trace = device_busy(end_to_end, 3)
+            log(f"trace, people-capped presized end to end: "
+                f"{json.dumps(trace)}")
+        log(f"people-capped 4-scale {name} batch {batch} "
+            f"{frames.shape[1]}x{frames.shape[2]} -> net sizes "
+            f"{inference.plan.net_input_sizes}: device {ms_device} ms/batch "
+            f"= {batch * 1e3 / ms_device} f/s; with fetch {ms_fetch} ms; "
+            f"host assembly {ms_assembly} ms; end to end {ms_e2e} ms/batch "
+            f"= {batch * 1e3 / ms_e2e} f/s; people per frame={people}")
+        runs[name] = (inference, images)
+    counts = read_launches("people-capped path", paf_cuda.sample_bicubic)
+    assert counts["paf_scores_fused"] == 0, \
+        "the 16-peak path launched the fused kernel"
+    res["launches"] = counts
+
+    # the routing question at K = 16, on this path's own peaks
+    inference, images = runs["presized"]
+    nms_thr, inter_thr, inter_min = inference.thresholds
+    with torch.inference_mode():
+        sources = inference.net_outputs(images)
+        peaks, scores = inference.decode(sources)
+        args = (sources, inference.plan.scale_input_to_net, net_hw, peaks,
+                inference.pairs, inference.map_idx, inter_thr, inter_min,
+                nms_thr)
+        routing = {
+            "sampled_ms": timed(lambda: paf.paf_scores_multiscale(*args), 2,
+                                10, device),
+            "fused_ms": timed(lambda: paf.paf_scores_multiscale(
+                *args, use_fused=True), 2, 10, device)}
+        routing.update(backend_agreement(
+            paf.paf_scores_multiscale(*args, use_fused=True), scores, "k16"))
+        # where the device time goes on this path: the per-scale resizes and
+        # CNNs, then merge + NMS + PAF
+        res["breakdown_presized"] = {
+            "net_outputs": timed(lambda: inference.net_outputs(images), 1,
+                                 iters, device),
+            "decode": timed(lambda: inference.decode(sources), 1, iters,
+                            device),
+            "paf_sampled": routing["sampled_ms"]}
+        log("people-capped presized breakdown (ms per batch): "
+            + json.dumps(res["breakdown_presized"]))
+        res["sampler_on_path"] = sampler_on_path(inference, sources, peaks)
+    res["routing_k16"] = routing
+    log(f"PAF stage at K = 16, 4 scales, batch {batch}: " + json.dumps(routing))
+    return res
+
+
+def whole_body_phase(device, pose_model, batch=4, frame_hw=(720, 1280),
+                     net_hw=(368, 656), people_cap=8, net_size=368, iters=3,
+                     injection_hw=(368, 656)):
+    """BODY_25 + FACE + HAND, bf16: the cascade timed per stage; the
+    batched face and hand keypoints held to the per-crop extractors; and
+    injected people through a net_bypass body."""
+    import numpy as np
+    import torch
+    from openpose_tpu_torch import synthetic
+    from openpose_tpu_torch.models import zoo
+    from openpose_tpu_torch.ops import paf_cuda
+    from openpose_tpu_torch.runtime.whole_body import (
+        WholeBodyInference, WholeBodyResult)
+
+    face_model = zoo.load_face_model(device=device)
+    hand_model = zoo.load_hand_model(device=device)
+    rng = np.random.RandomState(2)
+    fh = frame_hw[0]
+    placed = [synthetic.random_people(rng, min(4, people_cap), frame_hw,
+                                      height_range=(0.6 * fh, 0.9 * fh))
+              for _ in range(batch)]
+    frames = torch.from_numpy(np.stack([
+        synthetic.render_scene_image(p, frame_hw, rng) for p in placed])
+    ).to(device)
+
+    def placed_results():
+        return [WholeBodyResult(p, np.ones(len(p), np.float32))
+                for p in placed]
+
+    wb = WholeBodyInference(pose_model, face_model, hand_model,
+                            frame_hw=frame_hw, net_hw=net_hw,
+                            people_cap=people_cap, face_net_size=net_size,
+                            hand_net_size=net_size, device=device)
+    reset_launches()
+    results = wb(frames)
+    # the whole cascade on the body's own people (random weights: up to
+    # the cap of arbitrary people, so face and hand crops are near full)
+    total_ms = host_ms(lambda: wb(frames), iters)
+    body_device = timed(lambda: wb.body(frames), 1, iters, device)
+    body_ms = host_ms(lambda: wb.body_stage(frames), iters)
+    # the face and hand stages on the placed people
+    face_ms = host_ms(lambda: wb.face_stage(frames, placed_results()), iters)
+    hand_ms = host_ms(lambda: wb.hand_stage(frames, placed_results()), iters)
+    counts = read_launches("whole-body path", paf_cuda.paf_scores_fused)
+    out = {"batch": batch, "people_cap": people_cap,
+           "body_people_per_frame": [len(r.pose_keypoints) for r in results],
+           "placed_people_per_frame": [len(p) for p in placed],
+           "ms_body_device": body_device, "ms_body_with_assembly": body_ms,
+           "ms_face_placed": face_ms, "ms_hand_placed": hand_ms,
+           "ms_cascade": total_ms, "fps": batch * 1e3 / total_ms,
+           "launches": counts}
+    log(f"whole body batch {batch} {frame_hw} -> {net_hw}, bf16: body "
+        f"{body_device} ms on the device, {body_ms} ms with fetch and "
+        f"assembly; face {face_ms} ms and hand {hand_ms} ms for "
+        f"{out['placed_people_per_frame']} placed people per frame; whole "
+        f"cascade {total_ms} ms/batch = {out['fps']} f/s on the body's own "
+        f"people per frame {out['body_people_per_frame']}")
+
+    out["per_crop_check"] = per_crop_check(
+        device, wb, face_model, hand_model, frames, placed_results)
+    out["injection"] = whole_body_injection(
+        device, pose_model, face_model, hand_model, injection_hw, people_cap,
+        net_size)
+    return out
+
+
+def per_crop_check(device, wb, face_model, hand_model, frames,
+                   placed_results):
+    """The batched face and hand stages against the per-crop extractors on
+    the same frames and rects, float32 with TF32 off.  Tolerance: the two
+    run other batch sizes, so cuDNN may sum in another order; a keypoint
+    matches when its decoded position is the same (1e-3 px) and its score
+    within 1e-3.  At least 99% must match, at most 8 may not, and no
+    position may differ by more than 1 px nor score by more than 1e-2
+    (a near-tie of two argmax candidates moves a keypoint by a fraction of
+    a crop pixel; a wrong map-back moves it by many)."""
+    import numpy as np
+    import torch
+    from openpose_tpu_torch.face.extractor import FaceExtractor
+    from openpose_tpu_torch.hand.extractor import HandExtractor
+    from openpose_tpu_torch.runtime.whole_body import WholeBodyInference
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        wb32 = WholeBodyInference(
+            wb.body.model, face_model, hand_model, frame_hw=wb.body.frame_hw,
+            net_hw=wb.body.net_hw, people_cap=wb.people_cap, device=device,
+            compute_dtype=torch.float32)
+        got = placed_results()
+        wb32.face_stage(frames, got)
+        wb32.hand_stage(frames, got)
+        face_ex = FaceExtractor(face_model, wb32.face.net_size,
+                                torch.float32, device)
+        hand_ex = HandExtractor(hand_model, wb32.hand.net_size,
+                                torch.float32, device=device)
+        pairs = []
+        for i, res in enumerate(got):
+            image = frames[i].cpu().numpy()
+            kp = res.pose_keypoints
+            want_face = face_ex.forward(image,
+                                        [r for r, _ in wb32.face_rects(kp)])
+            flat = [r for r, _ in wb32.hand_rects(kp)]
+            want_l, want_r = hand_ex.forward(image,
+                                             list(zip(flat[0::2], flat[1::2])))
+            pairs += [(res.face_keypoints, want_face),
+                      (res.hand_left_keypoints, want_l),
+                      (res.hand_right_keypoints, want_r)]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    total = matched = 0
+    max_xy = max_score = 0.0
+    for g, w in pairs:
+        assert g.shape == w.shape, (g.shape, w.shape)
+        assert np.any(w[..., 2] != 0), "a crop decoded nothing"
+        dxy = np.abs(g[..., :2] - w[..., :2]).max(axis=-1)
+        ds = np.abs(g[..., 2] - w[..., 2])
+        total += dxy.size
+        matched += int(((dxy <= 1e-3) & (ds <= 1e-3)).sum())
+        max_xy, max_score = max(max_xy, float(dxy.max())), \
+            max(max_score, float(ds.max()))
+    share = matched / total
+    log(f"batched vs per-crop face and hand keypoints (f32): {matched} of "
+        f"{total} match ({share}); max position diff {max_xy} px, max "
+        f"score diff {max_score}")
+    assert share >= 0.99 and total - matched <= 8, (matched, total)
+    assert max_xy <= 1.0 and max_score <= 1e-2, (max_xy, max_score)
+    return {"keypoints": total, "matched": matched, "share": share,
+            "max_xy_diff_px": max_xy, "max_score_diff": max_score}
+
+
+def whole_body_injection(device, pose_model, face_model, hand_model, net_hw,
+                         people_cap, net_size, batch=4, n_people=3):
+    """Known people as the body's net output (a net_bypass body): the
+    cascade must assemble them and crop faces and hands around them."""
+    import numpy as np
+    import torch
+    from openpose_tpu_torch import synthetic
+    from openpose_tpu_torch.ops import paf
+    from openpose_tpu_torch.runtime.whole_body import WholeBodyInference
+
+    info = pose_model.info
+    rng = np.random.RandomState(8)
+    people = np.stack([synthetic.random_people(rng, n_people, net_hw)
+                       for _ in range(batch)])
+    pairs, map_idx = paf.pair_tables(info)
+    net_output = synthetic.make_targets(people, pairs, map_idx, net_hw,
+                                        info.num_parts, info.heatmap_channels)
+    frames = np.stack([synthetic.render_scene_image(p, net_hw, rng)
+                       for p in people])
+    wb = WholeBodyInference(pose_model, face_model, hand_model,
+                            frame_hw=None, net_hw=net_hw,
+                            people_cap=people_cap, face_net_size=net_size,
+                            hand_net_size=net_size, device=device,
+                            net_bypass=True)
+    results = wb(torch.from_numpy(frames).to(device), net_output=net_output)
+    errs = []
+
+    def inside(rect, xy, pad=0.0):
+        return (rect[0] - pad <= xy[0] <= rect[0] + rect[2] + pad
+                and rect[1] - pad <= xy[1] <= rect[1] + rect[3] + pad)
+    for res, placed in zip(results, people):
+        kp = res.pose_keypoints
+        assert kp.shape[0] == n_people, f"{kp.shape[0]} people != {n_people}"
+        for person in placed:
+            dist = np.abs(kp[:, :, :2] - person[None, :, :2]).max(axis=(1, 2))
+            errs.append(float(dist.min()))
+        faces = [r for r, _ in wb.face_rects(kp)]
+        hands = [r for r, _ in wb.hand_rects(kp)]
+        assert res.face_keypoints.shape == (n_people, 70, 3)
+        assert res.hand_left_keypoints.shape == (n_people, 21, 3)
+        for p in range(n_people):
+            # BODY_25: 0 nose, 4 right wrist, 7 left wrist
+            assert inside(faces[p], kp[p, 0, :2]), "face crop misses the nose"
+            assert inside(hands[2 * p], kp[p, 7, :2]), "left hand crop"
+            assert inside(hands[2 * p + 1], kp[p, 4, :2]), "right hand crop"
+            for rect, kps in ((faces[p], res.face_keypoints[p]),
+                              (hands[2 * p], res.hand_left_keypoints[p]),
+                              (hands[2 * p + 1], res.hand_right_keypoints[p])):
+                assert (kps[:, 2] != 0).any()
+                assert all(inside(rect, xy, 1.0) for xy in kps[:, :2])
+    log(f"whole-body injection: placed {n_people} people in each of {batch} "
+        f"frames, assembled {[len(r.pose_keypoints) for r in results]}; max "
+        f"keypoint error {max(errs)} px; face and hand crops around each")
+    assert max(errs) <= 8.0
+    return {"people": n_people, "max_keypoint_err_px": max(errs)}
 
 
 def cnn_cpu_check(model, device):
@@ -426,20 +866,30 @@ def main() -> int:
     report = {"device": kind, "nvidia_smi": smi, "build_seconds": build_s}
     model = zoo.load_pose_model(seed=0, device=device)   # BODY_25
     report["kernel"] = kernel_phase(device, model.info)
+    report["sampler"] = sampler_phase(device)
     report["main_path"] = main_path_phase(device, model)
+    report["people_capped"] = people_capped_phase(device, model)
+    report["whole_body"] = whole_body_phase(device, model)
     report["injection"] = injection_phase(device, model)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    kernel = report["kernel"]
+    kernel, sampler = report["kernel"], report["sampler"]
+    source = "openpose_tpu_torch/kernels/paf_score.cu"
     log(json.dumps({"kernels": [{
-        "name": "paf_score_kernel", "route": "cuda",
-        "source": "openpose_tpu_torch/kernels/paf_score.cu",
+        "name": "paf_score_kernel", "route": "cuda", "source": source,
         "replaces": "openpose_tpu/ops/paf_pallas.py:286",
-        "launches": report["main_path"]["launches"],
+        "launches": report["main_path"]["launches"]["paf_scores_fused"]
+        + report["whole_body"]["launches"]["paf_scores_fused"],
         "max_abs_err": max(kernel["max_abs_err"], report["main_path"][
             "breakdown"]["paf_main_path_max_abs_err"]),
-        "ms": kernel["ms"], "plain_ms": kernel["plain_ms"]}]}))
+        "ms": kernel["ms"], "plain_ms": kernel["plain_ms"]}, {
+        "name": "sample_bicubic_kernel", "route": "cuda", "source": source,
+        "replaces": "openpose_tpu/ops/paf_pallas.py:335",
+        "launches": report["people_capped"]["launches"]["sample_bicubic"],
+        "max_abs_err": max(sampler["max_abs_err"], report["people_capped"][
+            "sampler_on_path"]["max_abs_err"]),
+        "ms": sampler["ms"], "plain_ms": sampler["plain_ms"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,5 +1,6 @@
-"""openpose_tpu_torch: the BODY_25 pose path in PyTorch, with hand-written
-CUDA kernels for NVIDIA Hopper (sm_90a).
+"""openpose_tpu_torch: the body pose path (single- and multi-scale) and the
+whole-body face and hand cascade in PyTorch, with hand-written CUDA kernels
+for NVIDIA Hopper (sm_90a).
 
 A second package beside the JAX reference `openpose_tpu`.  It follows that
 package's module layout and tensor layouts (NHWC net outputs and heatmaps,

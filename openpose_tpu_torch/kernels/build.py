@@ -91,6 +91,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         f64, f64, f64,                                    # thresholds
         i32, vp]                                          # device, stream
     lib.paf_score_launch.restype = i32
+    lib.sample_bicubic_launch.argtypes = [
+        vp, vp, vp, vp, vp,                               # low_xy my mx vx vy
+        i32, i32, i32, i32, i32,                          # n P h w S
+        f64, f64,                                         # scale_h scale_w
+        i32, vp]                                          # device, stream
+    lib.sample_bicubic_launch.restype = i32
     lib.paf_score_error_string.argtypes = [i32]
     lib.paf_score_error_string.restype = ctypes.c_char_p
     return lib

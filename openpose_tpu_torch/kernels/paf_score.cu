@@ -1,8 +1,10 @@
-// Fused PAF pair scoring for NVIDIA Hopper (sm_90a).
+// PAF kernels for NVIDIA Hopper (sm_90a): fused pair scoring, and the
+// bicubic sampler of the unfused backend.
 //
-// Replaces the TPU kernel `paf_scores_fused` (openpose_tpu/ops/paf_pallas.py,
-// kernel body `_paf_fused_kernel`).  For every frame n, limb pair p and peak
-// combination (i, j) it computes what that kernel computes:
+// 1. paf_score_kernel replaces the TPU kernel `paf_scores_fused`
+// (openpose_tpu/ops/paf_pallas.py, kernel body `_paf_fused_kernel`).  For
+// every frame n, limb pair p and peak combination (i, j) it computes what
+// that kernel computes:
 //
 //   * line geometry: n_s = clip(floor(sqrt(5 * Linf(AB)) + 0.5), 5, 25)
 //     samples at pixel clamp(floor(a + l * AB / n_s + 0.5)), l < n_s;
@@ -31,10 +33,28 @@
 // count_A writes -1 and exits before staging, the counterpart of the TPU
 // kernel's per-row skip, so the cost follows the real peak counts.
 //
+// 2. sample_bicubic_kernel replaces the TPU kernel `sample_bicubic_pallas`
+// (same file, kernel body `_make_kernel`, taps `_tap_weights_t`): the
+// Catmull-Rom value of one pair's 8x-upsampled PAF x and y maps at integer
+// target pixels (my, mx), with the tap source coordinate of that kernel,
+// src = (coord + 0.5) / scale - 0.5.  The two formulas agree only in exact
+// arithmetic, so each kernel keeps its TPU counterpart's.  The TPU kernel
+// contracts dense [taps, 2048] weight matrices on its matrix unit; here one
+// thread reads the 16 taps of a sample directly.  One CTA covers one
+// (frame, pair) and 2048 samples (8 per thread, neighbouring threads on
+// neighbouring samples).  What bounds it: 32 tap reads per sample against
+// 16 bytes of coordinates in and 8 bytes of values out; at the profile shape
+// (8 x 26 pairs x 403,225 samples) 2.7e9 tap reads and 2.0 GB of device
+// memory traffic.  The pair's two planes are staged in shared memory when
+// they fit the 96 KB budget (30 KB at 46x82), else read through the
+// read-only cache.  Any S works, with no padding; any coordinate value is
+// clamped to the map, so no read leaves it.
+//
 // Numerics: f32 throughout, built with -fmad=false so that every multiply
-// and add rounds on its own, in the same order as the plain PyTorch version
-// (ops/paf.py paf_scores_multiscale_reference); the two then agree bit for
-// bit, and threshold decisions (proj > 0.05) cannot flip between them.
+// and add rounds on its own, in the same order as the plain PyTorch versions
+// (ops/paf.py paf_scores_multiscale_reference, sample_bicubic_reference);
+// the two then agree bit for bit, and threshold decisions (proj > 0.05)
+// cannot flip between them.
 
 #include <cuda_runtime.h>
 
@@ -76,13 +96,11 @@ struct PafArgs {
   float inv_scales;
 };
 
-// Catmull-Rom taps and weights of one target coordinate (cubicSequentialData
+// Catmull-Rom taps and weights at one source coordinate (cubicSequentialData
 // + cubicInterpolate of the reference): t1 = clamp(floor(src)), the other
 // taps clamped to the map, dx measured from the clamped t1.
-__device__ __forceinline__ void cubic_taps(float coord, int in_size,
-                                           float scale, float off,
-                                           int t[4], float wt[4]) {
-  const float src = coord / scale + off;
+__device__ __forceinline__ void cubic_taps(float src, int in_size, int t[4],
+                                           float wt[4]) {
   const float t1 = fminf(fmaxf(floorf(src), 0.0f), (float)(in_size - 1));
   const float d = src - t1;
   const float d2 = d * d;
@@ -96,6 +114,19 @@ __device__ __forceinline__ void cubic_taps(float coord, int in_size,
   t[1] = t1i;
   t[2] = min(in_size - 1, t1i + 1);
   t[3] = min(in_size - 1, t[2] + 1);
+}
+
+// Source coordinate of a target coordinate in the fused TPU kernel
+// (paf_pallas.py `_paf_fused_kernel`): coord / scale + (0.5 / scale - 0.5).
+__device__ __forceinline__ float fused_source(float coord, float scale,
+                                              float off) {
+  return coord / scale + off;
+}
+
+// ... and in the TPU sampler (paf_pallas.py `_tap_weights_t`, paf.py
+// `_tap_matrix`): (coord + 0.5) / scale - 0.5.
+__device__ __forceinline__ float half_pixel_source(int coord, float scale) {
+  return ((float)coord + 0.5f) / scale - 0.5f;
 }
 
 __device__ __forceinline__ float sample_map(const float* m, int w,
@@ -142,8 +173,8 @@ __device__ float pair_score(const PafArgs& a, const float* const* map_x,
     for (int s = 0; s < a.n_scales; ++s) {
       int ty[4], tx[4];
       float wy[4], wx[4];
-      cubic_taps(my, a.h[s], a.scale_h[s], a.off_h[s], ty, wy);
-      cubic_taps(mx, a.w[s], a.scale_w[s], a.off_w[s], tx, wx);
+      cubic_taps(fused_source(my, a.scale_h[s], a.off_h[s]), a.h[s], ty, wy);
+      cubic_taps(fused_source(mx, a.scale_w[s], a.off_w[s]), a.w[s], tx, wx);
       valx = valx + sample_map(map_x[s], a.w[s], ty, wy, tx, wx);
       valy = valy + sample_map(map_y[s], a.w[s], ty, wy, tx, wx);
     }
@@ -235,6 +266,55 @@ paf_score_kernel(const PafArgs a) {
   }
 }
 
+constexpr int kSampleThreads = 256;
+constexpr int kSamplesPerThread = 8;   // 2048 samples per CTA
+
+struct SampleArgs {
+  const float* low_xy;             // [N, P, 2, h, w], contiguous
+  const int* my;                   // [N, P, S] target-grid rows
+  const int* mx;                   // [N, P, S] target-grid columns
+  float* vx;                       // [N, P, S]
+  float* vy;
+  int n_pairs;
+  int h;
+  int w;
+  int s;
+  float scale_h;
+  float scale_w;
+  bool staged;                     // the pair's planes in shared memory
+};
+
+__global__ void __launch_bounds__(kSampleThreads)
+sample_bicubic_kernel(const SampleArgs a) {
+  extern __shared__ float smem[];
+  const size_t np = (size_t)blockIdx.z * a.n_pairs + blockIdx.y;
+  const size_t hw = (size_t)a.h * a.w;
+  const float* map_x = a.low_xy + np * 2 * hw;
+  const float* map_y = map_x + hw;
+  if (a.staged) {
+    for (size_t idx = threadIdx.x; idx < 2 * hw; idx += kSampleThreads)
+      smem[idx] = __ldg(map_x + idx);
+    __syncthreads();
+    map_x = smem;
+    map_y = smem + hw;
+  }
+  const size_t base = np * a.s;
+  const int first = blockIdx.x * kSampleThreads * kSamplesPerThread;
+#pragma unroll
+  for (int k = 0; k < kSamplesPerThread; ++k) {
+    const int i = first + k * kSampleThreads + threadIdx.x;
+    if (i >= a.s) break;
+    int ty[4], tx[4];
+    float wy[4], wx[4];
+    cubic_taps(half_pixel_source(__ldg(a.my + base + i), a.scale_h), a.h, ty,
+               wy);
+    cubic_taps(half_pixel_source(__ldg(a.mx + base + i), a.scale_w), a.w, tx,
+               wx);
+    a.vx[base + i] = sample_map(map_x, a.w, ty, wy, tx, wx);
+    a.vy[base + i] = sample_map(map_y, a.w, ty, wy, tx, wx);
+  }
+}
+
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
@@ -299,6 +379,46 @@ extern "C" int paf_score_launch(
   const dim3 block(kLanes, kRowThreads);
   paf_score_kernel<<<grid, block, smem_bytes,
                      static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Launches the sampler on `stream` and returns cudaGetLastError() (0 on
+// success).  Every pointer is device memory.
+extern "C" int sample_bicubic_launch(
+    const void* low_xy, const void* my, const void* mx, void* vx, void* vy,
+    int n, int n_pairs, int h, int w, int s, double scale_h, double scale_w,
+    int device, void* stream) {
+  if (n < 0 || n_pairs < 0 || n_pairs > 65535 || n > 65535 || h < 1 ||
+      w < 1 || s < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  SampleArgs a;
+  a.low_xy = static_cast<const float*>(low_xy);
+  a.my = static_cast<const int*>(my);
+  a.mx = static_cast<const int*>(mx);
+  a.vx = static_cast<float*>(vx);
+  a.vy = static_cast<float*>(vy);
+  a.n_pairs = n_pairs;
+  a.h = h;
+  a.w = w;
+  a.s = s;
+  a.scale_h = (float)scale_h;
+  a.scale_w = (float)scale_w;
+  const size_t plane_bytes = 2 * (size_t)h * w * sizeof(float);
+  a.staged = plane_bytes <= kSmemBudget;
+  const size_t smem_bytes = a.staged ? plane_bytes : 0;
+  if (smem_bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(sample_bicubic_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (n == 0 || n_pairs == 0 || s == 0) return (int)cudaSuccess;
+  const int per_cta = kSampleThreads * kSamplesPerThread;
+  const dim3 grid((s + per_cta - 1) / per_cta, n_pairs, n);
+  sample_bicubic_kernel<<<grid, kSampleThreads, smem_bytes,
+                          static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -49,30 +49,36 @@ def load_spec(name: str) -> NetSpec:
         return NetSpec.from_json(json.load(f))
 
 
+def channels(spec: NetSpec) -> Dict[str, int]:
+    """The channel count of every blob of a spec, the input's included."""
+    out: Dict[str, int] = {spec.input: spec.input_channels}
+    for layer in spec.layers:
+        if layer.type == "Convolution":
+            c = layer.num_output
+        elif layer.type == "Concat":
+            c = sum(out[b] for b in layer.bottoms)
+        else:  # ReLU / PReLU / Pooling keep channels
+            c = out[layer.bottoms[0]]
+        for top in layer.tops:
+            out[top] = c
+    return out
+
+
 def init_params(spec: NetSpec, generator: torch.Generator) -> Params:
     """He-normal initialization for every learnable layer (OIHW weights)."""
     params: Params = {}
-    channels: Dict[str, int] = {spec.input: spec.input_channels}
+    blob_channels = channels(spec)
     for layer in spec.layers:
         if layer.type == "Convolution":
-            c_in = channels[layer.bottoms[0]]
+            c_in = blob_channels[layer.bottoms[0]]
             fan_in = layer.kernel * layer.kernel * c_in
             w = torch.randn((layer.num_output, c_in, layer.kernel, layer.kernel),
                             generator=generator)
             params[layer.name] = {"w": w * float(np.sqrt(2.0 / fan_in)),
                                   "b": torch.zeros(layer.num_output)}
-            for top in layer.tops:
-                channels[top] = layer.num_output
         elif layer.type == "PReLU":
-            c = channels[layer.bottoms[0]]
+            c = blob_channels[layer.bottoms[0]]
             params[layer.name] = {"slope": torch.full((c,), 0.25)}
-        elif layer.type == "Concat":
-            c = sum(channels[b] for b in layer.bottoms)
-            for top in layer.tops:
-                channels[top] = c
-        else:  # ReLU / Pooling keep channels
-            for top in layer.tops:
-                channels[top] = channels[layer.bottoms[0]]
     return params
 
 

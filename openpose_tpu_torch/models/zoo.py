@@ -1,6 +1,7 @@
-"""Model registry: the pose nets with seeded random or caffemodel weights.
+"""Model registry: the pose, face and hand nets with seeded random or
+caffemodel weights.
 
-Counterpart of `openpose_tpu/models/zoo.py` for the pose models.  A model is
+Counterpart of `openpose_tpu/models/zoo.py`.  A model is
 its `NetSpec`, a `graph.PoseNet` holding the weights on a device, and its
 `PoseModelInfo`.  Random weights come from a seeded `torch.Generator`; they
 are not the JAX package's random weights (the two generators differ), so
@@ -43,6 +44,19 @@ def from_params(spec: caffe_proto.NetSpec, params: graph.Params,
                  info=info)
 
 
+def _load(spec_name: str, seed: int, device: Union[str, torch.device],
+          caffemodel: Optional[str],
+          info: Optional[PoseModelInfo] = None) -> Model:
+    spec = graph.load_spec(spec_name)
+    if caffemodel is not None:
+        blobs = caffe_proto.parse_caffemodel(
+            pathlib.Path(caffemodel).read_bytes())
+        params = graph.convert_caffe_blobs(spec, blobs)
+    else:
+        params = graph.init_params(spec, torch.Generator().manual_seed(seed))
+    return from_params(spec, params, info, device)
+
+
 def load_pose_model(model: PoseModel = PoseModel.BODY_25, seed: int = 0,
                     device: Union[str, torch.device] = "cpu",
                     caffemodel: Optional[str] = None) -> Model:
@@ -51,11 +65,16 @@ def load_pose_model(model: PoseModel = PoseModel.BODY_25, seed: int = 0,
     if model.experimental:
         raise ValueError(f"PoseModel.{model.name} has no bundled topology")
     info = POSE_MODEL_INFO[model]
-    spec = graph.load_spec(info.spec)
-    if caffemodel is not None:
-        blobs = caffe_proto.parse_caffemodel(
-            pathlib.Path(caffemodel).read_bytes())
-        params = graph.convert_caffe_blobs(spec, blobs)
-    else:
-        params = graph.init_params(spec, torch.Generator().manual_seed(seed))
-    return from_params(spec, params, info, device)
+    return _load(info.spec, seed, device, caffemodel, info)
+
+
+def load_face_model(seed: int = 1, device: Union[str, torch.device] = "cpu",
+                    caffemodel: Optional[str] = None) -> Model:
+    """The 70-keypoint face net (`face_70.json`); the JAX package's seed."""
+    return _load("face_70", seed, device, caffemodel)
+
+
+def load_hand_model(seed: int = 2, device: Union[str, torch.device] = "cpu",
+                    caffemodel: Optional[str] = None) -> Model:
+    """The 21-keypoint hand net (`hand_21.json`); the JAX package's seed."""
+    return _load("hand_21", seed, device, caffemodel)

@@ -10,24 +10,32 @@ the samples whose projection on the unit AB vector exceeds
   merged heatmap `[N, H, W, C]`.
 * `paf_scores_multiscale`: the production path.  The merged 8x-upsampled PAF
   at an integer pixel is a 4x4-tap Catmull-Rom combination of each scale's
-  low-res net output, evaluated without materializing the upsample.  It
-  calls the kernel wrapper (`paf_cuda`), which launches the hand-written
-  kernel on a CUDA tensor and runs `paf_scores_multiscale_reference`, the
-  kernel's plain PyTorch version, on a CPU tensor.
+  low-res net output, evaluated without materializing the upsample, by one
+  of two backends, each with a hand-written kernel (`paf_cuda`):
+  - fused (max_peaks > 32): geometry, sampling and scoring in one kernel;
+    plain version `paf_scores_multiscale_reference`;
+  - sampled (max_peaks <= 32, the people-capped budgets): geometry and
+    scoring in torch ops around the sampling kernel; plain version of the
+    sampler `sample_bicubic_reference`.
 
-The JAX package's `fast_peaks` tier ladder and its occupancy routing between
-the Pallas kernel and the tap-matrix backend are TPU tuning and are not
-ported.  Output: [N, P, K, K] float32.
+The JAX package's `fast_peaks` tier ladder is TPU tuning and is not ported:
+its output equals the untiered one.  Output: [N, P, K, K] float32.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 MAX_LINE_SAMPLES = 25
+# `paf_scores_multiscale` takes the fused kernel above this peak budget and
+# the sampled backend at or below it (the JAX package's rule, `paf.py:212`)
+FUSED_MIN_PEAKS = 32
+# samples per block of pairs in the sampled backend (64 MB per float32
+# temporary)
+SAMPLED_BLOCK_SAMPLES = 1 << 24
 
 
 def _line_geometry(peaks: torch.Tensor, pairs: torch.Tensor,
@@ -105,18 +113,10 @@ def paf_scores(heatmaps: torch.Tensor, peaks: torch.Tensor,
                      inter_min_above_threshold, default_nms_threshold)
 
 
-def _cubic_taps(coord: torch.Tensor, in_size: int, scale: float):
-    """Catmull-Rom taps and weights of integer target coordinates.
-
-    Tap source coordinate src = coord / scale + (0.5 / scale - 0.5), the
-    formula of the TPU kernel (`paf_pallas.py`) and of the CUDA kernel;
-    `paf.py::_tap_matrix` in the JAX package writes (coord + 0.5) / scale -
-    0.5, equal in exact arithmetic.  t1 = clamp(floor(src), 0, in-1), the
-    other taps clamped, dx measured from the clamped t1."""
-    # a tensor divisor: CUDA divides by a Python scalar as a multiply by its
-    # reciprocal, which can differ from the kernel's division in the last bit
-    divisor = torch.tensor(np.float32(scale), device=coord.device)
-    src = coord / divisor + float(np.float32(0.5 / scale - 0.5))
+def _taps_from_source(src: torch.Tensor, in_size: int):
+    """Catmull-Rom taps and weights at float source coordinates:
+    t1 = clamp(floor(src), 0, in-1), the other taps clamped to the map, dx
+    measured from the clamped t1 (cubicSequentialData + cubicInterpolate)."""
     t1 = torch.clamp(torch.floor(src), 0, in_size - 1)
     d = src - t1
     d2 = d * d
@@ -130,6 +130,67 @@ def _cubic_taps(coord: torch.Tensor, in_size: int, scale: float):
     taps = (torch.clamp(t1i - 1, min=0), t1i, t2i,
             torch.clamp(t2i + 1, max=in_size - 1))
     return taps, weights
+
+
+def _divisor(scale: float, device: torch.device) -> torch.Tensor:
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by its
+    # reciprocal, which can differ from the kernels' division in the last bit
+    return torch.tensor(np.float32(scale), device=device)
+
+
+def _cubic_taps(coord: torch.Tensor, in_size: int, scale: float):
+    """Taps of integer target coordinates (held in float32) with the source
+    coordinate of the fused TPU kernel (`paf_pallas.py::_paf_fused_kernel`)
+    and of the fused CUDA kernel: src = coord / scale + (0.5 / scale - 0.5)."""
+    src = coord / _divisor(scale, coord.device) \
+        + float(np.float32(0.5 / scale - 0.5))
+    return _taps_from_source(src, in_size)
+
+
+def _half_pixel_taps(coord: torch.Tensor, in_size: int, scale: float):
+    """Taps of integer target coordinates with the source coordinate of the
+    TPU sampler (`paf_pallas.py::_tap_weights_t`), of `paf.py::_tap_matrix`
+    and of the CUDA sampler: src = (coord + 0.5) / scale - 0.5.  Equal to
+    `_cubic_taps`'s formula in exact arithmetic only."""
+    src = (coord.to(torch.float32) + 0.5) / _divisor(scale, coord.device) - 0.5
+    return _taps_from_source(src, in_size)
+
+
+def _tap_sum(low: torch.Tensor, taps_y, wy, taps_x, wx,
+             ws: int) -> torch.Tensor:
+    """low [N, P, hs * ws] planes sampled at taps shaped [N, P, ...]: for
+    each of the 4 rows, the sum of its 4 column taps in order, then the
+    rows summed in order (the CUDA kernels' `sample_map`)."""
+    n, p = low.shape[:2]
+    out = None
+    for r in range(4):
+        acc = None
+        for c in range(4):
+            idx = taps_y[r] * ws + taps_x[c]
+            val = torch.gather(low, 2, idx.reshape(n, p, -1)).reshape(idx.shape)
+            term = wx[c] * val
+            acc = term if acc is None else acc + term
+        out = wy[r] * acc if out is None else out + wy[r] * acc
+    return out
+
+
+def sample_bicubic_reference(low_xy: torch.Tensor, my: torch.Tensor,
+                             mx: torch.Tensor, scale_h: float,
+                             scale_w: float
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the sampling kernel (`paf_cuda.sample_bicubic`),
+    the port of `paf_pallas.py::sample_bicubic_pallas` batched over frames.
+
+    low_xy [N, P, 2, hs, ws] float32 (each pair's PAF x and y planes);
+    my, mx [N, P, S] int32 pixels of the 8x-upsampled target grid.  Returns
+    (vx, vy) [N, P, S]: the Catmull-Rom upsample of the planes at those
+    pixels, target pixel c read at source (c + 0.5) / scale - 0.5."""
+    n, p, _, hs, ws = low_xy.shape
+    ty, wy = _half_pixel_taps(my, hs, scale_h)
+    tx, wx = _half_pixel_taps(mx, ws, scale_w)
+    low = low_xy.to(torch.float32).reshape(n, p, 2, hs * ws)
+    return (_tap_sum(low[:, :, 0], ty, wy, tx, wx, ws),
+            _tap_sum(low[:, :, 1], ty, wy, tx, wx, ws))
 
 
 def _scale_factors(sources: Sequence[torch.Tensor],
@@ -185,19 +246,65 @@ def _reference_block(sources, scale_ratios, target_hw, peaks, pairs, map_idx,
         tx, wx = _cubic_taps(geo["mx"], ws, scale_w)
         for col, val in ((0, valx), (1, valy)):
             low = chans[:, map_idx[:, col].long()].reshape(n, p, hs * ws)
-            v = torch.zeros_like(val)
-            for r in range(4):
-                acc = None
-                for c in range(4):
-                    idx = (ty[r] * ws + tx[c]).reshape(n, p, -1)
-                    term = wx[c] * torch.gather(low, 2, idx).reshape(val.shape)
-                    acc = term if acc is None else acc + term
-                v = v + wy[r] * acc
-            val += v
+            val += _tap_sum(low, ty, wy, tx, wx, ws)
     proj = (geo["ux"][..., None] * valx + geo["uy"][..., None] * valy) \
         * float(np.float32(1.0 / len(sources)))
     return _finalize(proj, geo, target_hw, inter_threshold,
                      inter_min_above_threshold, default_nms_threshold)
+
+
+def sampler_args(sources: Sequence[torch.Tensor],
+                 scale_ratios: Sequence[float], target_hw: Tuple[int, int],
+                 geo: Dict[str, torch.Tensor], map_idx: torch.Tensor):
+    """The sampler's arguments for each scale of the sampled backend:
+    (low_xy [N, P, 2, hs, ws], my, mx [N, P, K * K * L] int32, scale_h,
+    scale_w) for the pairs of `geo` (`_line_geometry`) and their map_idx
+    rows."""
+    n, p = geo["my"].shape[:2]
+    my = geo["my"].to(torch.int32).reshape(n, p, -1)
+    mx = geo["mx"].to(torch.int32).reshape(n, p, -1)
+    mi = map_idx.long()
+    for src, (scale_h, scale_w) in zip(
+            sources, _scale_factors(sources, scale_ratios, target_hw)):
+        chans = src.to(torch.float32).permute(0, 3, 1, 2)   # [N, C, hs, ws]
+        low_xy = torch.stack([chans[:, mi[:, 0]], chans[:, mi[:, 1]]], dim=2)
+        yield low_xy.contiguous(), my, mx, scale_h, scale_w
+
+
+def paf_scores_sampled(
+        sources: Sequence[torch.Tensor], scale_ratios: Sequence[float],
+        target_hw: Tuple[int, int], peaks: torch.Tensor, pairs: torch.Tensor,
+        map_idx: torch.Tensor, inter_threshold: float,
+        inter_min_above_threshold: float,
+        default_nms_threshold: float) -> torch.Tensor:
+    """The unfused backend, counterpart of the non-Pallas branch of
+    `paf.py::_multiscale_impl`: line geometry, then for each scale the
+    sampler (`paf_cuda.sample_bicubic`) over every pair's x/y maps, summed
+    over scales and scaled by 1 / n_scales, then the same finalize.
+
+    Blocked over pairs, as JAX's `lax.map` is, so that the per-sample
+    temporaries stay near `SAMPLED_BLOCK_SAMPLES` (at K = 127, batch 8 one
+    pair alone has 3.2M samples)."""
+    from openpose_tpu_torch.ops import paf_cuda
+    n, p, k = peaks.shape[0], pairs.shape[0], peaks.shape[2] - 1
+    block = max(1, SAMPLED_BLOCK_SAMPLES // max(1, n * k * k * MAX_LINE_SAMPLES))
+    inv = float(np.float32(1.0 / len(sources)))
+    out = []
+    for p0 in range(0, p, block):
+        geo = _line_geometry(peaks, pairs[p0:p0 + block], target_hw)
+        shape = geo["mx"].shape                        # [N, p, K, K, L]
+        acc_x = acc_y = None
+        for args in sampler_args(sources, scale_ratios, target_hw, geo,
+                                 map_idx[p0:p0 + block]):
+            vx, vy = paf_cuda.sample_bicubic(*args)
+            acc_x = vx if acc_x is None else acc_x + vx
+            acc_y = vy if acc_y is None else acc_y + vy
+        proj = (geo["ux"][..., None] * (acc_x * inv).reshape(shape)
+                + geo["uy"][..., None] * (acc_y * inv).reshape(shape))
+        out.append(_finalize(proj, geo, target_hw, inter_threshold,
+                             inter_min_above_threshold,
+                             default_nms_threshold))
+    return torch.cat(out, dim=1)
 
 
 def paf_scores_multiscale(
@@ -205,13 +312,24 @@ def paf_scores_multiscale(
         target_hw: Tuple[int, int], peaks: torch.Tensor, pairs: torch.Tensor,
         map_idx: torch.Tensor, inter_threshold: float,
         inter_min_above_threshold: float,
-        default_nms_threshold: float) -> torch.Tensor:
+        default_nms_threshold: float,
+        use_fused: Optional[bool] = None) -> torch.Tensor:
     """Pair scores from per-scale low-res net outputs [N, h_s, w_s, C].
 
     The sampled value is the mean over scales of the Catmull-Rom upsample
-    that `resize.upsample_merge` would produce at that pixel.  The kernel
-    wrapper takes CUDA tensors to the kernel (and raises on anything it
-    cannot take) and CPU tensors to the plain version."""
+    that `resize.upsample_merge` would produce at that pixel.  `use_fused`
+    picks the backend: the fused kernel (`paf_cuda.paf_scores_fused`) or
+    the sampled one (`paf_scores_sampled`); None applies the JAX package's
+    rule, fused when max_peaks > `FUSED_MIN_PEAKS` (`paf.py:212`).  This is
+    the one place that routes between the two; each kernel wrapper then
+    takes CUDA tensors to its kernel and CPU tensors to its plain version."""
+    if use_fused is None:
+        use_fused = peaks.shape[2] - 1 > FUSED_MIN_PEAKS
+    if not use_fused:
+        return paf_scores_sampled(
+            sources, scale_ratios, target_hw, peaks, pairs, map_idx,
+            inter_threshold, inter_min_above_threshold,
+            default_nms_threshold)
     # imported here: the wrapper's CPU route is this module's plain version
     from openpose_tpu_torch.ops import paf_cuda
     return paf_cuda.paf_scores_fused(

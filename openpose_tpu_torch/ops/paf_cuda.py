@@ -1,11 +1,16 @@
-"""Wrapper of the hand-written PAF scoring kernel (`kernels/paf_score.cu`).
+"""Wrappers of the hand-written PAF kernels (`kernels/paf_score.cu`).
 
-`paf_scores_fused` is the port of the TPU kernel
-`openpose_tpu/ops/paf_pallas.py::paf_scores_fused`.  On CUDA tensors it
-launches the kernel on the current stream, or raises; it never falls back.
-On CPU tensors it runs the plain version, `paf.paf_scores_multiscale_reference`.
-This is the one place that routes between the two.
-`paf_scores_fused.launches` counts the kernel launches.
+* `paf_scores_fused`, the port of the TPU kernel
+  `openpose_tpu/ops/paf_pallas.py::paf_scores_fused`; plain version
+  `paf.paf_scores_multiscale_reference`.
+* `sample_bicubic`, the port of the TPU kernel
+  `openpose_tpu/ops/paf_pallas.py::sample_bicubic_pallas`; plain version
+  `paf.sample_bicubic_reference`.
+
+On CUDA tensors each wrapper launches its kernel on the current stream, or
+raises; it never falls back.  On CPU tensors it runs the plain version.
+These are the only places that route between a kernel and its plain
+version.  `<wrapper>.launches` counts the kernel launches.
 
 Per call the wrapper checks shapes, dtypes, devices and layout, which needs
 no host sync.  The values of `pairs` and `map_idx` are checked where the
@@ -96,3 +101,49 @@ def paf_scores_fused(sources: Sequence[torch.Tensor],
 
 
 paf_scores_fused.launches = 0
+
+
+def _check_sampler_inputs(low_xy, my, mx) -> None:
+    device = low_xy.device
+    if low_xy.dtype != torch.float32 or low_xy.ndim != 5 \
+            or low_xy.shape[2] != 2:
+        raise ValueError(f"low_xy must be float32 [N, P, 2, hs, ws], got "
+                         f"{low_xy.dtype} {tuple(low_xy.shape)}")
+    for name, t in (("my", my), ("mx", mx)):
+        if t.device != device or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32 on {device}, "
+                             f"got {t.dtype} on {t.device}")
+        if t.shape != my.shape or t.ndim != 3 \
+                or tuple(t.shape[:2]) != tuple(low_xy.shape[:2]):
+            raise ValueError(f"my and mx must both be [N, P, S] with the "
+                             f"maps' N, P = {tuple(low_xy.shape[:2])}")
+    for name, t in (("low_xy", low_xy), ("my", my), ("mx", mx)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def sample_bicubic(low_xy: torch.Tensor, my: torch.Tensor, mx: torch.Tensor,
+                   scale_h: float, scale_w: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(vx, vy) [N, P, S]: the Catmull-Rom 8x upsample of each pair's x/y
+    planes low_xy [N, P, 2, hs, ws] float32 at the int32 target-grid
+    pixels my, mx [N, P, S] (any S; coordinates outside the grid read the
+    clamped border taps)."""
+    if not low_xy.is_cuda:
+        return paf.sample_bicubic_reference(low_xy, my, mx, scale_h, scale_w)
+    _check_sampler_inputs(low_xy, my, mx)
+    n, p, _, hs, ws = low_xy.shape
+    vx = torch.empty(my.shape, dtype=torch.float32, device=low_xy.device)
+    vy = torch.empty_like(vx)
+    lib = build.library()
+    code = lib.sample_bicubic_launch(
+        low_xy.data_ptr(), my.data_ptr(), mx.data_ptr(), vx.data_ptr(),
+        vy.data_ptr(), n, p, hs, ws, my.shape[2], float(scale_h),
+        float(scale_w), low_xy.device.index or 0,
+        torch.cuda.current_stream(low_xy.device).cuda_stream)
+    build.check(lib, code, "sample_bicubic_kernel launch")
+    sample_bicubic.launches += 1
+    return vx, vy
+
+
+sample_bicubic.launches = 0

@@ -1,17 +1,21 @@
-"""Batched pose inference on one GPU.
+"""Batched inference on one GPU.
 
-Counterpart of `openpose_tpu/parallel/inference.py::ShardedPoseInference`
-without the mesh, single scale: frames arrive pre-sized to the net input,
-[B, net_h, net_w, 3] BGR uint8 or float 0..255, and go through CNN ->
-resize-and-merge -> NMS -> PAF scoring as one batch, with the model's
-default thresholds and the 127-peak budget.  Outputs stay on the device;
-`fetch` copies them to the host with the pair scores cut to the smallest
-`SCORE_BUCKETS` size that covers the batch's largest peak count.
+* `PoseInference`: counterpart of
+  `openpose_tpu/parallel/inference.py::ShardedPoseInference` without the
+  mesh.  A batch of frames goes through per-scale resize -> CNN ->
+  resize-and-merge -> NMS -> PAF scoring as one batch; outputs stay on the
+  device, and `fetch` copies them to the host with the pair scores cut to
+  the smallest `SCORE_BUCKETS` size that covers the batch's largest peak
+  count.
+* `TopDownInference`: counterpart of `ShardedTopDown`: every frame of a
+  batch crops up to `people_cap` square ROIs, one CNN forward covers all
+  crops, a windowed argmax decodes them, and `extract` maps the keypoints
+  back to frame pixels.
 """
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -19,8 +23,28 @@ import torch
 from openpose_tpu.ops import assembly
 from openpose_tpu.params import (
     POSE_MAX_PEOPLE, PoseModel, default_connect_params)
+from openpose_tpu.pose import scaler
+from openpose_tpu_torch.models import graph
 from openpose_tpu_torch.models.zoo import Model
-from openpose_tpu_torch.ops import nms, paf, resize
+from openpose_tpu_torch.ops import maximum, nms, paf, resize, warp
+
+
+Rect = Tuple[float, float, float, float]
+
+
+def rect_is_active(rect: Rect) -> bool:
+    """Big enough to crop (handExtractorCaffe.cpp:363)."""
+    return min(rect[2], rect[3]) > 1 and rect[2] * rect[3] > 10
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """Start a copy of t to host memory; on a CUDA tensor it is
+    asynchronous (pinned memory) and done once the stream passes it."""
+    if not t.is_cuda:
+        return t.contiguous()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
 
 
 class PoseInference:
@@ -32,13 +56,36 @@ class PoseInference:
 
     def __init__(self, model: Model, net_hw: Tuple[int, int] = (368, 656),
                  device: Union[str, torch.device, None] = None,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 max_peaks: int = POSE_MAX_PEOPLE,
+                 nms_threshold: float = 0.05, inter_threshold: float = 0.05,
+                 inter_min_above_threshold: float = 0.95,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 scale_number: int = 1, scale_gap: float = 0.25,
+                 frame_hw: Optional[Tuple[int, int]] = None,
+                 net_bypass: bool = False):
+        """frame_hw: if given, `__call__` takes raw frames [B, fh, fw, 3] and
+        every scale resamples the frame on the device (the reference's
+        multi-scale semantics); if None, frames are pre-sized scale-0 net
+        inputs [B, net_h, net_w, 3] and the smaller scales are derived from
+        that canvas.
+
+        net_bypass: `__call__` takes net outputs [B, net_h/8, net_w/8, C]
+        and skips the CNN (the reference's Datum::poseNetOutput hook);
+        single scale, pre-sized only."""
+        if net_bypass and (scale_number != 1 or frame_hw is not None):
+            raise ValueError("net_bypass supports only single-scale, "
+                             "pre-sized inputs (like the reference hook)")
         self.device = torch.device(device) if device is not None \
             else model.device
         model.net.to(self.device)
         self.model = model
         self.net_hw = net_hw
+        self.max_peaks = max_peaks
+        self.thresholds = (nms_threshold, inter_threshold,
+                           inter_min_above_threshold)
         self.compute_dtype = compute_dtype
+        self.frame_hw = frame_hw
+        self.net_bypass = net_bypass
         info = model.info
         self.num_parts = info.num_parts
         self.connect = default_connect_params(PoseModel(info.name))
@@ -47,44 +94,219 @@ class PoseInference:
         self.pairs = torch.from_numpy(pairs).to(self.device)
         self.map_idx = torch.from_numpy(map_idx).to(self.device)
 
+        net_h, net_w = net_hw
+        in_wh = (net_w, net_h) if frame_hw is None \
+            else (frame_hw[1], frame_hw[0])
+        self.plan = scaler.extract_scales(in_wh, (net_w, net_h),
+                                          scale_number, scale_gap)
+        # net-output px -> input px (poseExtractorCaffe.cpp:306-311);
+        # identity when inputs are already net-sized
+        s0 = self.plan.scale_input_to_net[0]
+        net_size = (int(s0 * in_wh[0] + 0.5), int(s0 * in_wh[1] + 0.5))
+        self.scale_net_to_output = scaler.resize_get_scale_factor(
+            net_size, in_wh)
+
+    def _check_input(self, x: torch.Tensor) -> None:
+        if self.net_bypass:
+            net_h, net_w = self.net_hw
+            want = (net_h // 8, net_w // 8, self.model.info.heatmap_channels)
+        else:
+            want = (*(self.frame_hw or self.net_hw), 3)
+        if x.ndim != 4 or tuple(x.shape[1:]) != want:
+            raise ValueError(f"inputs must be [B, {', '.join(map(str, want))}]"
+                             f", got {tuple(x.shape)}")
+
     @torch.inference_mode()
+    def net_outputs(self, images: Union[np.ndarray, torch.Tensor]
+                    ) -> List[torch.Tensor]:
+        """Per-scale net outputs [B, h_s, w_s, C] float32 (the inputs
+        themselves with net_bypass)."""
+        x = torch.as_tensor(images).to(self.device, non_blocking=True)
+        self._check_input(x)
+        # uint8 frames go to the device as they are and become float there
+        x = x.to(torch.float32)
+        if self.net_bypass:
+            return [x]
+        net_h, net_w = self.net_hw
+        scales = self.plan.scale_input_to_net
+        sources = []
+        for (w_i, h_i), s_i in zip(self.plan.net_input_sizes, scales):
+            if self.frame_hw is not None:
+                # each scale resamples the frame
+                net_in = resize.resize_fixed_aspect(x, s_i, (h_i, w_i))
+            elif (w_i, h_i) == (net_w, net_h):
+                net_in = x
+            else:
+                # derived from the scale-0 canvas (s_0 == 1 here)
+                net_in = resize.resize_fixed_aspect(x, s_i / scales[0],
+                                                    (h_i, w_i))
+            sources.append(self.model.forward(resize.normalize_vgg(net_in),
+                                              self.compute_dtype))
+        return sources
+
+    @torch.inference_mode()
+    def decode(self, sources: Sequence[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-scale net outputs -> (peaks [B, parts, K+1, 3], pair scores
+        [B, P, K, K]) on the device; `paf.paf_scores_multiscale` picks the
+        PAF backend by the peak budget."""
+        nms_thr, inter_thr, inter_min = self.thresholds
+        scales = list(self.plan.scale_input_to_net)
+        merged = resize.upsample_merge(
+            [s[..., :self.num_parts] for s in sources], scales, self.net_hw)
+        # the +0.5 refinement offset in input pixels after the host rescale
+        # (poseExtractorCaffe.cpp:317-318)
+        off = float(0.5 / self.scale_net_to_output)
+        peaks = nms.nms(merged, nms_thr, self.max_peaks, offset=(off, off))
+        scores = paf.paf_scores_multiscale(
+            sources, scales, self.net_hw, peaks, self.pairs, self.map_idx,
+            inter_thr, inter_min, nms_thr)
+        return peaks, scores
+
     def __call__(self, images: Union[np.ndarray, torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """images [B, net_h, net_w, 3] -> (peaks [B, parts, K+1, 3],
-        pair scores [B, P, K, K]), both on the device."""
-        x = torch.as_tensor(images).to(self.device, non_blocking=True)
-        if tuple(x.shape[1:]) != (*self.net_hw, 3):
-            raise ValueError(f"images must be [B, {self.net_hw[0]}, "
-                             f"{self.net_hw[1]}, 3], got {tuple(x.shape)}")
-        source = self.model.forward(
-            resize.normalize_vgg(x.to(torch.float32)), self.compute_dtype)
-        merged = resize.upsample_merge([source[..., :self.num_parts]], [1.0],
-                                       self.net_hw)
-        cp = self.connect
-        # net-sized inputs: the +0.5 refinement offset is in net pixels
-        peaks = nms.nms(merged, cp.nms_threshold, POSE_MAX_PEOPLE)
-        scores = paf.paf_scores_multiscale(
-            [source], [1.0], self.net_hw, peaks, self.pairs, self.map_idx,
-            cp.inter_threshold, cp.inter_min_above_threshold,
-            cp.nms_threshold)
-        return peaks, scores
+        """images [B, net_h, net_w, 3] BGR uint8 or float 0..255; raw
+        [B, fh, fw, 3] frames with frame_hw; net outputs with net_bypass.
+        Returns (peaks [B, parts, K+1, 3], pair scores [B, P, K, K]), both
+        on the device."""
+        return self.decode(self.net_outputs(images))
 
     def fetch(self, peaks: torch.Tensor, scores: torch.Tensor
               ) -> Tuple[np.ndarray, np.ndarray]:
         """Device outputs -> host arrays, the score matrix sliced on the
         device to the smallest bucket covering the batch's max peak count."""
-        peaks_np = peaks.cpu().numpy()
-        max_count = int(peaks_np[:, :, 0, 0].max()) if peaks_np.size else 0
-        k = next((b for b in self.SCORE_BUCKETS
-                  if max_count <= b < POSE_MAX_PEOPLE), POSE_MAX_PEOPLE)
-        return peaks_np, scores[:, :, :k, :k].cpu().numpy()
+        return self.fetch_end(self.fetch_begin(peaks, scores))
+
+    def fetch_begin(self, peaks: torch.Tensor, scores: torch.Tensor):
+        """Start the device->host copies of the peaks and of the smallest
+        bucket's score slice without waiting; when the batch's largest peak
+        count fits that bucket, `fetch_end` needs no further copy."""
+        k0 = self.SCORE_BUCKETS[0]
+        copies = (_host_copy(peaks), _host_copy(scores[:, :, :k0, :k0]))
+        done = None
+        if peaks.is_cuda:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(peaks.device))
+        return scores, copies, k0, done
+
+    def fetch_end(self, handle) -> Tuple[np.ndarray, np.ndarray]:
+        scores, (peaks_host, head_host), k0, done = handle
+        if done is not None:
+            done.synchronize()
+        peaks = peaks_host.numpy()
+        max_count = int(peaks[:, :, 0, 0].max()) if peaks.size else 0
+        if max_count <= k0:
+            return peaks, head_host.numpy()
+        for k in self.SCORE_BUCKETS:
+            if max_count <= k < self.max_peaks:
+                return peaks, scores[:, :, :k, :k].cpu().numpy()
+        return peaks, scores.cpu().numpy()
 
     def assemble(self, peaks: np.ndarray, scores: np.ndarray
                  ) -> Tuple[np.ndarray, np.ndarray]:
         """Host tail for one fetched frame: peaks [parts, K+1, 3] and scores
-        [P, k, k] -> (keypoints [people, parts, 3] in net pixels, person
+        [P, k, k] -> (keypoints [people, parts, 3] in input pixels, person
         scores [people])."""
         cp = self.connect
         return assembly.connect_body_parts(
             scores, peaks, self._pairs_np, self.num_parts, cp.min_subset_cnt,
-            cp.min_subset_score, 1.0)
+            cp.min_subset_score, self.scale_net_to_output)
+
+
+class TopDownInference:
+    """Batched per-person crop extraction for a whole frame batch.
+
+    Every frame crops up to `people_cap` square ROIs from itself, one CNN
+    forward covers all crops, and `maximum.channel_argmax_refined` decodes
+    them (the windowed equivalent of the reference's 8x upsample + argmax).
+    Only the leading slots up to the last active one are cropped; the
+    slots after it are zero, as in the JAX package's crop-tier programs.
+    """
+
+    # transform row for an inactive slot: every sample far outside -> zeros
+    INACTIVE = (1.0, 1.0, -1e6, -1e6)
+
+    def __init__(self, model: Model, net_size: int = 368,
+                 people_cap: int = 8,
+                 device: Union[str, torch.device, None] = None,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        self.device = torch.device(device) if device is not None \
+            else model.device
+        model.net.to(self.device)
+        self.model = model
+        self.net_size = net_size
+        self.people_cap = people_cap
+        self.compute_dtype = compute_dtype
+        self.channels = graph.channels(model.spec)[model.spec.output]
+
+    @staticmethod
+    def active_slots(transforms: np.ndarray) -> int:
+        """1 + the highest active slot of any frame (0 when none is)."""
+        active = np.asarray(transforms)[..., 2] > -1e5   # INACTIVE tx = -1e6
+        return int(np.nonzero(active)[-1].max()) + 1 if active.any() else 0
+
+    @torch.inference_mode()
+    def __call__(self, frames: Union[np.ndarray, torch.Tensor],
+                 transforms: np.ndarray,
+                 net_output: Optional[Union[np.ndarray, torch.Tensor]] = None
+                 ) -> torch.Tensor:
+        """frames [B, H, W, 3]; transforms [B, people_cap, 4] host rows
+        (`warp.rect_to_transform`, `INACTIVE` for an empty slot).  Returns
+        [B, people_cap, C, 3] peaks in crop coordinates on the device (map
+        them back with `warp.map_back`).
+
+        net_output: optional [B, people_cap, s/8, s/8, C] net outputs that
+        replace the crop and CNN stages (decode only)."""
+        if net_output is not None:
+            maps = torch.as_tensor(net_output).to(self.device, torch.float32)
+            b, p = maps.shape[:2]
+            peaks = maximum.channel_argmax_refined(
+                maps.reshape(b * p, *maps.shape[2:]))
+            return peaks.reshape(b, p, *peaks.shape[1:])
+        transforms = np.asarray(transforms, np.float32)
+        x = torch.as_tensor(frames).to(self.device, non_blocking=True)
+        b, k, s = x.shape[0], self.active_slots(transforms), self.net_size
+        out = torch.zeros((b, self.people_cap, self.channels, 3),
+                          dtype=torch.float32, device=self.device)
+        if k == 0:
+            return out
+        tr = torch.from_numpy(np.ascontiguousarray(transforms[:, :k]))
+        crops = warp.crop_affine_batch(x.to(torch.float32),
+                                       tr.to(self.device), s)
+        maps = self.model.forward(
+            resize.normalize_vgg(crops.reshape(b * k, s, s, 3)),
+            self.compute_dtype)
+        out[:, :k] = maximum.channel_argmax_refined(maps).reshape(
+            b, k, self.channels, 3)
+        return out
+
+    def extract(self, frames: Union[np.ndarray, torch.Tensor],
+                crops: Sequence[Sequence[Tuple[Rect, bool]]],
+                num_parts: int) -> List[np.ndarray]:
+        """frames [B, H, W, 3]; crops[i] the (rect, mirror) pairs of frame
+        i.  Returns per frame [len(crops[i]), num_parts, 3] keypoints in
+        frame pixels; a rect too small to crop, or past `people_cap`,
+        yields zeros."""
+        b, cap = len(crops), self.people_cap
+        transforms = np.tile(np.asarray(self.INACTIVE, np.float32),
+                             (b, cap, 1))
+        active: List[List[Tuple[int, tuple]]] = []
+        for i, frame_crops in enumerate(crops):
+            rows = []
+            for slot, (rect, mirror) in enumerate(frame_crops[:cap]):
+                if rect_is_active(rect):
+                    tr = warp.rect_to_transform(rect, self.net_size, mirror)
+                    transforms[i, slot] = tr
+                    rows.append((slot, tr))
+            active.append(rows)
+        if any(active):
+            peaks = self(frames, transforms).cpu().numpy()
+        per_frame = []
+        for i, frame_crops in enumerate(crops):
+            kp = np.zeros((len(frame_crops), num_parts, 3), np.float32)
+            for slot, tr in active[i]:
+                raw = peaks[i, slot, :num_parts]     # drop the background
+                kp[slot, :, :2] = warp.map_back(raw[:, :2], tr)
+                kp[slot, :, 2] = raw[:, 2]
+            per_frame.append(kp)
+        return per_frame

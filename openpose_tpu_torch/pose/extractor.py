@@ -2,7 +2,8 @@
 
 Counterpart of `openpose_tpu/pose/extractor.py`.  Device side, per frame:
 per-scale resize + normalize -> CNN -> resize-and-merge of the part
-channels -> NMS -> PAF pair scoring (the CUDA kernel on a card).  Host side:
+channels -> NMS -> PAF pair scoring (a CUDA kernel on a card: the fused
+scorer above 32 peaks, the sampler below).  Host side:
 greedy people assembly (`openpose_tpu.ops.assembly`, shared with the JAX
 package).  Geometry follows PoseExtractorCaffe::forwardPass: the merge
 target is the scale-0 net input size, and the NMS offset is
@@ -12,7 +13,7 @@ target is the scale-0 net input size, and the NMS offset is
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -20,7 +21,7 @@ import torch
 from openpose_tpu.io import json_io
 from openpose_tpu.ops import assembly
 from openpose_tpu.params import (
-    POSE_MAX_PEOPLE, PoseModel, default_connect_params)
+    POSE_MAX_PEOPLE, ConnectParams, PoseModel, default_connect_params)
 from openpose_tpu.pose import scaler
 from openpose_tpu_torch.models.zoo import Model
 from openpose_tpu_torch.ops import nms, paf, resize
@@ -32,7 +33,11 @@ class PosePrediction:
 
     keypoints: np.ndarray          # [people, parts, 3] (x, y, score)
     scores: np.ndarray             # [people]
-    peaks: Optional[np.ndarray] = None      # [parts, K+1, 3] net-input px
+    heatmaps: Optional[np.ndarray] = None   # [h, w, C] merged low-res, all
+    #                                         channels (parts + bkg + PAFs)
+    # [parts, K+1, 3] in net-output px: the resize-and-merge grid of size
+    # net_output_size (the scale-0 net input), before scale_net_to_output
+    peaks: Optional[np.ndarray] = None
     scale_net_to_output: float = 1.0
     net_output_size: Tuple[int, int] = (0, 0)   # (w, h)
     scale_input_to_net: Tuple[float, ...] = ()
@@ -46,42 +51,53 @@ class PosePrediction:
 class PoseExtractor:
     """Multi-person 2D pose extractor for one pose model."""
 
-    def __init__(self, model: Model,
-                 device: Union[str, torch.device, None] = None,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, model: Model, max_peaks: int = POSE_MAX_PEOPLE,
+                 maximize_positives: bool = False,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 connect_params: Optional[ConnectParams] = None,
+                 device: Union[str, torch.device, None] = None):
         self.device = torch.device(device) if device is not None \
             else model.device
         model.net.to(self.device)
         self.model = model
         self.info = model.info
+        self.max_peaks = max_peaks
+        self.maximize_positives = maximize_positives
         self.compute_dtype = compute_dtype
-        self.connect = default_connect_params(PoseModel(self.info.name))
+        self.connect = connect_params or default_connect_params(
+            PoseModel(self.info.name), maximize_positives)
         self.pairs, self.map_idx = paf.pair_tables(self.info)
         self._pairs_dev = torch.from_numpy(self.pairs).to(self.device)
         self._map_idx_dev = torch.from_numpy(self.map_idx).to(self.device)
 
     @torch.inference_mode()
-    def run_device(self, image: torch.Tensor, plan: scaler.ScalePlan,
-                   nms_offset: float, injected: Optional[torch.Tensor] = None):
-        """image [1, H, W, 3] BGR float 0..255 on the device; injected: an
-        optional [1, h/8, w/8, C] net output that replaces the CNN (the
-        reference's Datum::poseNetOutput hook).  Returns (peaks [1, parts,
-        K+1, 3], scores [1, P, K, K])."""
-        num_parts = self.info.num_parts
-        target_w, target_h = plan.net_input_sizes[0]
+    def net_outputs(self, image: torch.Tensor, plan: scaler.ScalePlan,
+                    injected: Optional[torch.Tensor] = None
+                    ) -> List[torch.Tensor]:
+        """image [1, H, W, 3] BGR float 0..255 on the device -> per-scale net
+        outputs [1, h_s, w_s, C]; injected: an optional [1, h/8, w/8, C] net
+        output that replaces the CNN (the reference's Datum::poseNetOutput
+        hook)."""
         if injected is not None:
-            sources = [injected.to(torch.float32)]
-        else:
-            sources = []
-            for (w, h), s in zip(plan.net_input_sizes, plan.scale_input_to_net):
-                net_in = resize.normalize_vgg(
-                    resize.resize_fixed_aspect(image, s, (h, w)))
-                sources.append(self.model.forward(net_in, self.compute_dtype))
+            return [injected.to(torch.float32)]
+        sources = []
+        for (w, h), s in zip(plan.net_input_sizes, plan.scale_input_to_net):
+            net_in = resize.normalize_vgg(
+                resize.resize_fixed_aspect(image, s, (h, w)))
+            sources.append(self.model.forward(net_in, self.compute_dtype))
+        return sources
+
+    @torch.inference_mode()
+    def decode(self, sources: List[torch.Tensor], plan: scaler.ScalePlan,
+               nms_offset: float):
+        """Per-scale net outputs -> (peaks [1, parts, K+1, 3], scores
+        [1, P, K, K])."""
+        target_w, target_h = plan.net_input_sizes[0]
         merged_parts = resize.upsample_merge(
-            [s[..., :num_parts] for s in sources],
+            [s[..., :self.info.num_parts] for s in sources],
             list(plan.scale_input_to_net), (target_h, target_w))
         cp = self.connect
-        peaks = nms.nms(merged_parts, cp.nms_threshold, POSE_MAX_PEOPLE,
+        peaks = nms.nms(merged_parts, cp.nms_threshold, self.max_peaks,
                         offset=(nms_offset, nms_offset))
         scores = paf.paf_scores_multiscale(
             sources, plan.scale_input_to_net, (target_h, target_w), peaks,
@@ -89,26 +105,36 @@ class PoseExtractor:
             cp.inter_min_above_threshold, cp.nms_threshold)
         return peaks, scores
 
+    def run_device(self, image: torch.Tensor, plan: scaler.ScalePlan,
+                   nms_offset: float, injected: Optional[torch.Tensor] = None):
+        """`net_outputs` then `decode`: (peaks, scores) on the device."""
+        return self.decode(self.net_outputs(image, plan, injected), plan,
+                           nms_offset)
+
     def assemble(self, peaks_np: np.ndarray, scores_np: np.ndarray,
                  scale_net_to_output: float):
         """Host tail for one frame (device outputs -> people)."""
         return assembly.connect_body_parts(
             scores_np, peaks_np, self.pairs, self.info.num_parts,
             self.connect.min_subset_cnt, self.connect.min_subset_score,
-            scale_net_to_output)
+            scale_net_to_output, self.maximize_positives)
 
     def forward(self, image: np.ndarray,
                 net_resolution: Tuple[int, int] = (-1, 368),
                 scale_number: int = 1, scale_gap: float = 0.25,
-                net_output: Optional[np.ndarray] = None) -> PosePrediction:
+                keep_heatmaps: bool = False,
+                net_output: Optional[np.ndarray] = None,
+                net_resolution_dynamic: float = -1.0) -> PosePrediction:
         """image: [H, W, 3] uint8/float BGR.  net_output: optional
-        [h/8, w/8, C] net output that bypasses the CNN."""
+        [h/8, w/8, C] net output that bypasses the CNN.  keep_heatmaps:
+        also return the merged low-res map of all channels."""
         if image.ndim != 3 or image.shape[-1] != 3:
             raise ValueError(
                 f"input image must be [H, W, 3] BGR, got shape {image.shape}")
         in_h, in_w = image.shape[:2]
-        plan = scaler.extract_scales((in_w, in_h), net_resolution,
-                                     scale_number, scale_gap)
+        plan = scaler.extract_scales(
+            (in_w, in_h), net_resolution, scale_number, scale_gap,
+            net_resolution_dynamic=net_resolution_dynamic)
         # scale_net_to_output (poseExtractorCaffe.cpp:306-311)
         net_out_w, net_out_h = plan.net_input_sizes[0]
         s_prod_to_net = scaler.resize_get_scale_factor(
@@ -125,14 +151,22 @@ class PoseExtractor:
         if net_output is not None:
             injected = torch.tensor(np.asarray(net_output, np.float32)[None],
                                     device=self.device)
-        peaks, scores = self.run_device(img, plan, nms_offset, injected)
+        sources = self.net_outputs(img, plan, injected)
+        peaks, scores = self.decode(sources, plan, nms_offset)
+        heatmaps = None
+        if keep_heatmaps:
+            # all channels averaged over scales on the scale-0 low-res grid
+            with torch.inference_mode():
+                heatmaps = resize.upsample_merge(
+                    sources, list(plan.scale_input_to_net),
+                    tuple(sources[0].shape[1:3]))[0].cpu().numpy()
         peaks_np = peaks[0].cpu().numpy()
         scores_np = scores[0].cpu().numpy()
         keypoints, person_scores = self.assemble(peaks_np, scores_np,
                                                  scale_net_to_output)
         return PosePrediction(
-            keypoints=keypoints, scores=person_scores, peaks=peaks_np,
-            scale_net_to_output=scale_net_to_output,
+            keypoints=keypoints, scores=person_scores, heatmaps=heatmaps,
+            peaks=peaks_np, scale_net_to_output=scale_net_to_output,
             net_output_size=(net_out_w, net_out_h),
             scale_input_to_net=tuple(plan.scale_input_to_net),
             net_input_sizes=tuple(plan.net_input_sizes))
