@@ -10,12 +10,16 @@ with a non-zero exit when it fails:
 1. device: the card's name and power limit;
 2. build: compiles `openpose_tpu_torch/kernels/*.cu` for sm_90a;
 3. kernel: the PAF scoring kernel against its plain PyTorch version, both
-   on the card, on small scenes and at the full BODY_25 shape (batch 8, 26
-   pairs, K = 127, 46x82 low-res maps); both timed with CUDA events;
+   on the card, on small scenes (peak counts of 0, 1 and the whole budget,
+   a budget that is no multiple of the lanes of a line, every staging
+   layout) and at the full BODY_25 shape (batch 8, 26 pairs, K = 127,
+   46x82 low-res maps); both timed with CUDA events and held against the
+   kernel's bound;
 4. sampler: the bicubic sampling kernel against its plain version on the
-   JAX suite's scene, a non-integer scale, a ragged sample count, planes
-   too large for shared memory and the profile shape (8 frames x 26 pairs
-   x 403,225 samples at 46x82); the profile shape is timed;
+   JAX suite's scene, a non-integer scale, a ragged sample count, large
+   planes, every staging choice, the multi-scale entry and the profile
+   shape (8 frames x 26 pairs x 403,225 samples at 46x82); the profile
+   shape is timed and held against the bound;
 5. main path: BODY_25 (seeded random weights) through `PoseExtractor` on
    720x1280 frames at net resolution 368x656 in float32 and bfloat16, and
    through batch-8 `PoseInference`, timed; the PAF kernel's launch count in
@@ -35,8 +39,15 @@ with a non-zero exit when it fails:
    through `PoseExtractor.forward(net_output=...)` and must assemble exactly
    those people, written out as people JSON.
 
-The line before the last is the kernel summary, the last line
-{"ok": true, "device": {...}}.  Details go to build/chip_smoke/chip_smoke.json.
+`python3 chip_smoke.py --capped-trace` runs the people-capped call alone,
+timed and traced (to set two trees side by side on one card).
+
+Each path's kernel launches are also counted for one call.  A kernel's
+bound is the least time the card could take for the same work: the larger
+of its bytes (each input read once, each output written once) over the
+card's memory rate and its float operations (counted from this run's peak
+counts and line lengths) over the card's float32 rate.  The line before the
+last is the kernel summary, the last line {"ok": true, "device": {...}}.  Details go to build/chip_smoke/chip_smoke.json.
 About 3 minutes on one H100, the build included.
 """
 
@@ -58,6 +69,20 @@ KERNEL_TOL = 1e-5
 # Dense peak rates of the H100 SXM5 (NVIDIA H100 datasheet), the yardstick
 # of the CNN's FLOP utilisation: bf16 on tensor cores, float32 without TF32.
 PEAK_TFLOPS = {"cnn_bf16": 989.4, "cnn_f32": 66.9}
+# The kernels' bounds: float32 outside the tensor cores, and HBM3 (same
+# datasheet).
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# Float operations of the PAF kernels, counted from `kernels/paf_score.cu`
+# with every multiply and add on its own (the build forbids fused ones).
+# Per sample and scale: 2 source coordinates (2 each), 2 x `axis_taps` (3 to
+# clamp the floor, 3 for d, d^2, d^3, 17 for the four cubics), the 4x4
+# window for x and y (4 rows of 7 + 7 + 4) and the 2 sums over scales.
+OPS_PER_SAMPLE_SCALE = 4 + 2 * 23 + 72 + 2
+# Per sample: its pixel (2 x 6), the projection (4), the threshold and sums.
+OPS_PER_SAMPLE = 12 + 4 + 2
+# Per line: its geometry (two roots, four divisions) and the final score.
+OPS_PER_LINE = 24
 
 
 def log(*args):
@@ -98,9 +123,10 @@ def host_ms(fn, iters):
 def device_busy(fn, iters):
     """torch.profiler trace of iters calls of fn (work that ends in a host
     sync): the share of the host's wall time in which the card ran kernels
-    or copies, and the five kernels with the most device time per call.
-    None where the trace holds no device events.  The profiler's own cost
-    lengthens the wall time, so the share is a lower bound."""
+    or copies, their number and device time per call, and the five kernels
+    with the most device time per call.  None where the trace holds no
+    device events.  The profiler's own cost lengthens the wall time, so the
+    share is a lower bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -112,15 +138,18 @@ def device_busy(fn, iters):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
+    by_name, launches = {}, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            launches += 1
     if not by_name:
         return None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return {"busy_share": sum(by_name.values()) / wall_us,
             "wall_ms_per_call": wall_us / iters / 1e3,
+            "device_ms_per_call": sum(by_name.values()) / iters / 1e3,
+            "device_launches_per_call": launches / iters,
             "top_kernels_ms_per_call": [(name[:80], us / iters / 1e3)
                                         for name, us in top]}
 
@@ -148,20 +177,84 @@ def reset_launches():
     """Set every kernel wrapper's launch count to 0."""
     from openpose_tpu_torch.ops import paf_cuda
     paf_cuda.paf_scores_fused.launches = 0
-    paf_cuda.sample_bicubic.launches = 0
+    paf_cuda.sample_bicubic_scales.launches = 0
 
 
 def read_launches(path, *must_launch):
     """Every wrapper's launch count since `reset_launches`; each wrapper in
     must_launch must have launched on this path."""
     from openpose_tpu_torch.ops import paf_cuda
-    counts = {w.__name__: w.launches for w in (paf_cuda.paf_scores_fused,
-                                                paf_cuda.sample_bicubic)}
+    counts = {w.__name__: w.launches
+              for w in (paf_cuda.paf_scores_fused,
+                        paf_cuda.sample_bicubic_scales)}
     log(f"{path} kernel launches: {counts}")
     for wrapper in must_launch:
         assert counts[wrapper.__name__] > 0, \
             f"the {path} did not launch {wrapper.__name__}"
     return counts
+
+
+def launches_per_call(path, call):
+    """Every wrapper's launch count over one call of a path."""
+    from openpose_tpu_torch.ops import paf_cuda
+    before = (paf_cuda.paf_scores_fused.launches,
+              paf_cuda.sample_bicubic_scales.launches)
+    call()
+    counts = {"paf_scores_fused": paf_cuda.paf_scores_fused.launches
+              - before[0],
+              "sample_bicubic_scales":
+                  paf_cuda.sample_bicubic_scales.launches - before[1]}
+    log(f"{path}: kernel launches per call {counts}")
+    return counts
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by) of a kernel that must move n_bytes and do n_ops
+    float32 operations."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
+
+
+def fused_bound(sources, peaks, pairs, map_idx):
+    """The scoring kernel's bound on these inputs.  Bytes: the PAF planes
+    that map_idx names, the peaks, the scores.  Operations: those of the
+    lines inside each pair's count_A x count_B block and of their n_s
+    samples, from the peaks themselves."""
+    import torch
+    counts = peaks[:, :, 0, 0]
+    xy = peaks[:, :, 1:, :2]
+    k = xy.shape[2]
+    a, b = pairs[:, 0].long(), pairs[:, 1].long()
+    d = xy[:, b][:, :, None, :, :] - xy[:, a][:, :, :, None, :]
+    linf = d.abs().amax(dim=-1)                     # [N, P, K, K]
+    n_s = torch.clamp(torch.floor(torch.sqrt(5.0 * linf) + 0.5), 5, 25)
+    ki = torch.arange(k, device=peaks.device)
+    valid = ((ki[:, None] < counts[:, a][..., None, None])
+             & (ki[None, :] < counts[:, b][..., None, None]))
+    lines = int(valid.sum())
+    samples = int((n_s * (valid & (d.norm(dim=-1) > 1e-6))).sum())
+    n_ops = lines * OPS_PER_LINE + samples * (
+        OPS_PER_SAMPLE + OPS_PER_SAMPLE_SCALE * len(sources))
+    planes = len(set(map_idx.flatten().tolist()))
+    n_bytes = 4 * (sum(s.shape[0] * s.shape[1] * s.shape[2] * planes
+                       for s in sources)
+                   + peaks.numel() + peaks.shape[0] * pairs.shape[0] * k * k)
+    ms, by = bound(n_bytes, n_ops)
+    return {"bound_ms": ms, "bound_by": by, "lines": lines,
+            "samples": samples, "bytes": n_bytes, "operations": n_ops}
+
+
+def sampler_bound(lows, my):
+    """The sampler's bound: coordinates in, values out (16 + 8 bytes per
+    sample) and the planes once, against its operations."""
+    samples = my.numel()
+    n_bytes = 24 * samples + 4 * sum(t.numel() for t in lows)
+    n_ops = samples * OPS_PER_SAMPLE_SCALE * len(lows)
+    ms, by = bound(n_bytes, n_ops)
+    return {"bound_ms": ms, "bound_by": by, "samples": samples,
+            "bytes": n_bytes, "operations": n_ops}
 
 
 def kernel_phase(device, info, full_shape=(8, 46, 82, 127)):
@@ -207,12 +300,47 @@ def kernel_phase(device, info, full_shape=(8, 46, 82, 127)):
     log("kernel case bad_table: the pair outside the maps scores NaN")
     src, peaks, hw = paf_scene(rng, [5, 4, 3], 8, 2, (11, 15), 10)
     src2 = rng.uniform(-1, 1, (2, 8, 11, 10)).astype(np.float32)
-    got, want, _ = both([src, src2], [1.0, 0.73], hw, peaks, pairs3, map3,
-                        (0.05, 0.5, 0.05))
+    got, want, args2 = both([src, src2], [1.0, 0.73], hw, peaks, pairs3,
+                            map3, (0.05, 0.5, 0.05))
     err = float((got - want).abs().max())
     max_err = max(max_err, err)
     log(f"kernel case two_scales: max_abs_err={err} tol={KERNEL_TOL}")
     assert err <= KERNEL_TOL, "two_scales"
+    # the kernel's staging layouts on that scene: with the border the two
+    # scales take 14 x 19 + 11 x 15 float2 (3448 bytes, the default);
+    # without, 11 x 15 + 8 x 11 (2024 bytes: a 2560-byte limit); one scale
+    # left in global memory (1320 bytes fit a 1536-byte limit); none staged
+    if device.type == "cuda":
+        for name, limit in (("unbordered", 2560), ("one_global", 1536),
+                            ("all_global", 1)):
+            got = paf_cuda.paf_scores_fused(*args2, smem_limit=limit)
+            err = float((got - want).abs().max())
+            max_err = max(max_err, err)
+            log(f"kernel case two_scales_{name}: max_abs_err={err} "
+                f"tol={KERNEL_TOL}")
+            assert err <= KERNEL_TOL, name
+    # peak counts of 0, 1 and the whole budget, with a budget (13) that is
+    # no multiple of the 5 lanes of a line, and a whole budget of 127
+    for name, counts, budget in (("counts_0_1_13", [0, 1, 13], 13),
+                                 ("counts_1_127_0", [1, 127, 0], 127),
+                                 ("counts_127", [127, 127, 127], 127)):
+        src, peaks, hw = paf_scene(rng, counts, budget, 2, (11, 15), 10)
+        got, want, _ = both([src], [1.0], hw, peaks, pairs3, map3,
+                            (0.05, 0.5, 0.05))
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        log(f"kernel case {name}: max_abs_err={err} tol={KERNEL_TOL}")
+        assert err <= KERNEL_TOL, name
+
+    # one scale of 736x1312: 127 KB of bordered planes, more than half of
+    # what an SM can stage, so the kernel's 512-thread form runs
+    src, peaks, hw = paf_scene(rng, [16, 9, 12], 16, 2, (92, 164), 10)
+    got, want, _ = both([src], [1.0], hw, peaks, pairs3, map3,
+                        (0.05, 0.5, 0.05))
+    err = float((got - want).abs().max())
+    max_err = max(max_err, err)
+    log(f"kernel case one_large_scale: max_abs_err={err} tol={KERNEL_TOL}")
+    assert err <= KERNEL_TOL, "one_large_scale"
 
     # full BODY_25 shape: every part at K peaks
     n, hs, ws, k = full_shape
@@ -231,10 +359,13 @@ def kernel_phase(device, info, full_shape=(8, 46, 82, 127)):
     ms = timed(lambda: paf_cuda.paf_scores_fused(*args), 3, 20, device)
     plain_ms = timed(lambda: paf.paf_scores_multiscale_reference(*args), 1, 3,
                      device)
-    log(f"kernel time body25_full: kernel_ms={ms} plain_ms={plain_ms}")
+    full_bound = fused_bound(args[0], args[3], args[4], args[5])
+    log(f"kernel time body25_full: kernel_ms={ms} plain_ms={plain_ms} "
+        f"bound={json.dumps(full_bound)} "
+        f"share_of_bound={full_bound['bound_ms'] / ms}")
 
-    # 4-scale 1312x736: the two largest scales exceed the kernel's shared
-    # memory budget and are read through the cache instead
+    # 4-scale 1312x736: the four planes fit a block's shared memory only
+    # without their borders (226 KB)
     sizes = [(92, 164), (69, 123), (46, 82), (23, 41)]
     ratios = [1.0, 0.75, 0.5, 0.25]
     src, peaks, hw = paf_scene(rng, [k] * info.num_parts, k, n, sizes[0],
@@ -248,12 +379,16 @@ def kernel_phase(device, info, full_shape=(8, 46, 82, 127)):
     ms4 = timed(lambda: paf_cuda.paf_scores_fused(*args4), 3, 20, device)
     plain_ms4 = timed(lambda: paf.paf_scores_multiscale_reference(*args4), 1,
                       2, device)
+    bound4 = fused_bound(args4[0], args4[3], args4[4], args4[5])
     log(f"kernel case four_scales {tuple(got.shape)}: max_abs_err={err} "
-        f"tol={KERNEL_TOL}; kernel_ms={ms4} plain_ms={plain_ms4}")
+        f"tol={KERNEL_TOL}; kernel_ms={ms4} plain_ms={plain_ms4} "
+        f"bound={json.dumps(bound4)} "
+        f"share_of_bound={bound4['bound_ms'] / ms4}")
     assert err <= KERNEL_TOL, "four_scales"
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "full_shape_mismatches": mismatches,
-            "four_scales_ms": ms4, "four_scales_plain_ms": plain_ms4}
+            "bound": full_bound, "full_shape_mismatches": mismatches,
+            "four_scales_ms": ms4, "four_scales_plain_ms": plain_ms4,
+            "four_scales_bound": bound4}
 
 
 def sampler_phase(device, profile_shape=(8, 26, 403_225, 46, 82)):
@@ -278,15 +413,43 @@ def sampler_phase(device, profile_shape=(8, 26, 403_225, 46, 82)):
             my[..., -2:], mx[..., -2:] = (-9, th + 9), (tw + 9, -9)
         args = (low, torch.from_numpy(my).to(device),
                 torch.from_numpy(mx).to(device), scale_h, scale_w)
-        got = paf_cuda.sample_bicubic(*args)
         want = paf.sample_bicubic_reference(*args)
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        mismatches = sum(int((g != w).sum()) for g, w in zip(got, want))
+        err, mismatches = 0.0, 0
+        # the one-scale entry (planes staged), then the planes read from
+        # global memory (on the CPU both are the plain version)
+        runs = [paf_cuda.sample_bicubic(*args),
+                paf_cuda.sample_bicubic_scales(
+                    [low], args[1], args[2], [(scale_h, scale_w)],
+                    smem_limit=1)]
+        for got in runs:
+            err = max(err, max(float((g - w).abs().max())
+                               for g, w in zip(got, want)))
+            mismatches += sum(int((g != w).sum()) for g, w in zip(got, want))
         log(f"sampler case {name} N={n} P={p} {hs}x{ws} S={s} "
             f"scale=({scale_h}, {scale_w}): max_abs_err={err} "
-            f"mismatches={mismatches} tol={KERNEL_TOL}")
+            f"mismatches={mismatches} tol={KERNEL_TOL} (staged, not staged)")
         assert err <= KERNEL_TOL, name
         return err, args
+
+    def multi_scale_case(name, n, p, s, sizes, **kwargs):
+        """The multi-scale entry against the in-order sum of the plain
+        one-scale version."""
+        th, tw = sizes[0][0] * 8, sizes[0][1] * 8
+        lows = [torch.from_numpy(rng.uniform(-1, 1, (n, p, 2, h, w))
+                                 .astype(np.float32)).to(device)
+                for h, w in sizes]
+        my = torch.from_numpy(rng.randint(0, th, (n, p, s))
+                              .astype(np.int32)).to(device)
+        mx = torch.from_numpy(rng.randint(0, tw, (n, p, s))
+                              .astype(np.int32)).to(device)
+        scales = [(th / h, tw / w) for h, w in sizes]
+        got = paf_cuda.sample_bicubic_scales(lows, my, mx, scales, **kwargs)
+        want = paf.sample_bicubic_scales_reference(lows, my, mx, scales)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        log(f"sampler case {name} N={n} P={p} S={s} scales={sizes} "
+            f"{kwargs}: max_abs_err={err} tol={KERNEL_TOL}")
+        assert err <= KERNEL_TOL, name
+        return err
 
     max_err = 0.0
     # the JAX suite's scene (tests/test_ops.py TestPafPallasKernel)
@@ -298,19 +461,31 @@ def sampler_phase(device, profile_shape=(8, 26, 403_225, 46, 82)):
             # S not a multiple of the 2048-sample block, coordinates off
             # the grid
             ("ragged_S", (2, 5, 46, 82, 3 * 2048 + 77, 8.0, 8.0, True, True)),
-            # scale 0 of that plan: 92x164 maps (121 KB) read through L1
-            ("unstaged", (2, 26, 92, 164, 6400, 8.0, 8.0))):
+            # scale 0 of that plan: 92x164 maps (127 KB staged)
+            ("large_planes", (2, 26, 92, 164, 6400, 8.0, 8.0))):
         err, _ = case(name, *shape)
         max_err = max(max_err, err)
+    # all four scales of that plan in one launch: by the rule (all staged,
+    # without their borders: 222 KB), under a 96 KB limit (not all fit, so
+    # none is staged), and too few samples for staging to pay (S = 40)
+    plan = [(92, 164), (69, 123), (46, 82), (23, 41)]
+    for name, s_count, kwargs in (
+            ("four_scales", 6400, {}),
+            ("four_scales_96k", 6400, {"smem_limit": 96 * 1024}),
+            ("four_scales_few_samples", 40, {})):
+        max_err = max(max_err, multi_scale_case(name, 2, 26, s_count, plan,
+                                                **kwargs))
     n, p, s, hs, ws = profile_shape
     err, args = case("profile", n, p, hs, ws, s, 8.0, 8.0)
     max_err = max(max_err, err)
     ms = timed(lambda: paf_cuda.sample_bicubic(*args), 3, 20, device)
     plain_ms = timed(lambda: paf.sample_bicubic_reference(*args), 1, 3, device)
+    profile_bound = sampler_bound([args[0]], args[1])
     log(f"sampler time profile {profile_shape}: kernel_ms={ms} "
-        f"plain_ms={plain_ms}")
+        f"plain_ms={plain_ms} bound={json.dumps(profile_bound)} "
+        f"share_of_bound={profile_bound['bound_ms'] / ms}")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "profile_shape": list(profile_shape)}
+            "bound": profile_bound, "profile_shape": list(profile_shape)}
 
 
 def scene_frames(rng, count, frame_hw, n_people=3):
@@ -359,6 +534,8 @@ def main_path_phase(device, model, frame_hw=(720, 1280), net_h=368, batch=8,
         assert peaks.shape == (batch, 25, 128, 3)
         assert scores.shape == (batch, 26, 127, 127)
         assert bool(torch.isfinite(peaks).all() & torch.isfinite(scores).all())
+        res["launches_per_call"] = launches_per_call(
+            f"main path, batch {batch}", lambda: inference(images))
         ms_device = timed(lambda: inference(images), 2, iters, device)
         ms_fetch = host_ms(lambda: inference.fetch(*inference(images)), iters)
         pk, sc = inference.fetch(*inference(images))
@@ -455,6 +632,9 @@ def stage_breakdown(model, frames, device, iters):
         got = paf_cuda.paf_scores_fused(*args)
         want = paf.paf_scores_multiscale_reference(*args)
         out["paf_main_path_max_abs_err"] = float((got - want).abs().max())
+        out["paf_bound"] = fused_bound([src], peaks, pairs, map_idx)
+        out["paf_share_of_bound"] = out["paf_bound"]["bound_ms"] \
+            / out["paf_kernel"]
         # the routing question at K = 127: the sampled backend (the
         # sampler kernel inside torch ops) on the same peaks
         sampled = lambda: paf.paf_scores_multiscale(*args, use_fused=False)
@@ -476,25 +656,42 @@ def backend_agreement(fused, sampled, tag):
                                                       .mean())}
 
 
-def sampler_on_path(inference, sources, peaks):
+def sampler_on_path(inference, sources, peaks, device):
     """The sampler kernel against its plain version on the sampled
-    backend's own inputs for one path: every pair's x/y planes of each
-    scale at every line sample of the path's peaks."""
+    backend's own inputs for one path: every pair's x/y planes of all
+    scales at every line sample of the path's peaks, in the one launch the
+    path makes and scale by scale.  Also times that launch, holds it
+    against its bound, and times the gather of the planes
+    (`paf.sampler_args`) that the path pays before it."""
     from openpose_tpu_torch.ops import paf, paf_cuda
     geo = paf._line_geometry(peaks, inference.pairs, inference.net_hw)
-    err, mismatches, shapes = 0.0, 0, []
-    for args in paf.sampler_args(sources, inference.plan.scale_input_to_net,
-                                 inference.net_hw, geo, inference.map_idx):
-        got = paf_cuda.sample_bicubic(*args)
-        want = paf.sample_bicubic_reference(*args)
-        err = max(err, max(float((g - w).abs().max())
-                           for g, w in zip(got, want)))
-        mismatches += sum(int((g != w).sum()) for g, w in zip(got, want))
-        shapes.append(list(args[0].shape) + [args[1].shape[2]])
+    make_args = lambda: paf.sampler_args(
+        sources, inference.plan.scale_input_to_net, inference.net_hw, geo,
+        inference.map_idx)
+    lows, my, mx, scales = make_args()
+    pairs = [(paf_cuda.sample_bicubic_scales(lows, my, mx, scales),
+              paf.sample_bicubic_scales_reference(lows, my, mx, scales))]
+    pairs += [(paf_cuda.sample_bicubic(low, my, mx, *scale),
+               paf.sample_bicubic_reference(low, my, mx, *scale))
+              for low, scale in zip(lows, scales)]
+    err = max(float((g - w).abs().max())
+              for got, want in pairs for g, w in zip(got, want))
+    mismatches = sum(int((g != w).sum())
+                     for got, want in pairs for g, w in zip(got, want))
+    shapes = [list(low.shape) for low in lows] + [list(my.shape)]
+    out = {"max_abs_err": err, "mismatches": mismatches, "shapes": shapes,
+           "ms": timed(lambda: paf_cuda.sample_bicubic_scales(
+               lows, my, mx, scales), 3, 20, device),
+           "gather_ms": timed(make_args, 3, 20, device),
+           "bound": sampler_bound(lows, my)}
+    out["share_of_bound"] = out["bound"]["bound_ms"] / out["ms"]
     log(f"sampler on the path's tensors {shapes}: max_abs_err={err} "
-        f"mismatches={mismatches} tol={KERNEL_TOL}")
+        f"mismatches={mismatches} tol={KERNEL_TOL}; kernel_ms={out['ms']} "
+        f"bound={json.dumps(out['bound'])} "
+        f"share_of_bound={out['share_of_bound']}; gather of the planes "
+        f"{out['gather_ms']} ms")
     assert err <= KERNEL_TOL
-    return {"max_abs_err": err, "mismatches": mismatches, "shapes": shapes}
+    return out
 
 
 def people_capped_phase(device, model, batch=4, net_hw=(736, 1312),
@@ -520,6 +717,9 @@ def people_capped_phase(device, model, batch=4, net_hw=(736, 1312),
         assert peaks.shape == (batch, 25, 17, 3)
         assert scores.shape == (batch, 26, 16, 16)
         assert bool(torch.isfinite(peaks).all() & torch.isfinite(scores).all())
+        res[f"launches_per_call_{name}"] = launches_per_call(
+            f"people-capped 4-scale {name}, batch {batch}",
+            lambda: inference(images))
         ms_device = timed(lambda: inference(images), 1, iters, device)
         ms_fetch = host_ms(lambda: inference.fetch(*inference(images)), iters)
         pk, sc = inference.fetch(peaks, scores)
@@ -554,7 +754,8 @@ def people_capped_phase(device, model, batch=4, net_hw=(736, 1312),
             f"host assembly {ms_assembly} ms; end to end {ms_e2e} ms/batch "
             f"= {batch * 1e3 / ms_e2e} f/s; people per frame={people}")
         runs[name] = (inference, images)
-    counts = read_launches("people-capped path", paf_cuda.sample_bicubic)
+    counts = read_launches("people-capped path",
+                           paf_cuda.sample_bicubic_scales)
     assert counts["paf_scores_fused"] == 0, \
         "the 16-peak path launched the fused kernel"
     res["launches"] = counts
@@ -585,10 +786,35 @@ def people_capped_phase(device, model, batch=4, net_hw=(736, 1312),
             "paf_sampled": routing["sampled_ms"]}
         log("people-capped presized breakdown (ms per batch): "
             + json.dumps(res["breakdown_presized"]))
-        res["sampler_on_path"] = sampler_on_path(inference, sources, peaks)
+        res["sampler_on_path"] = sampler_on_path(inference, sources, peaks,
+                                                 device)
+        # the forced fused kernel on this path's tensors, against its bound
+        routing["fused_bound"] = fused_bound(sources, peaks, inference.pairs,
+                                             inference.map_idx)
+        routing["fused_share_of_bound"] = \
+            routing["fused_bound"]["bound_ms"] / routing["fused_ms"]
     res["routing_k16"] = routing
     log(f"PAF stage at K = 16, 4 scales, batch {batch}: " + json.dumps(routing))
     return res
+
+
+def capped_trace(device, model, batch=4, net_hw=(736, 1312)):
+    """`--capped-trace`: the people-capped 4-scale call on pre-sized frames
+    alone, timed three times over and traced, to set two trees side by side
+    on one card: its device time, and how many kernels and copies it
+    launches."""
+    import numpy as np
+    import torch
+    from openpose_tpu_torch.parallel.inference import PoseInference
+    frames = scene_frames(np.random.RandomState(1), batch, net_hw)
+    inference = PoseInference(model, net_hw=net_hw, device=device,
+                              max_peaks=16, scale_number=4, scale_gap=0.25)
+    images = torch.from_numpy(frames).to(device)
+    out = {"ms_per_batch_device": [timed(lambda: inference(images), 1, 5,
+                                         device) for _ in range(3)],
+           "trace": device_busy(lambda: inference(images), 3)}
+    log("people-capped 4-scale presized, device only: " + json.dumps(out))
+    return out
 
 
 def whole_body_phase(device, pose_model, batch=4, frame_hw=(720, 1280),
@@ -626,6 +852,8 @@ def whole_body_phase(device, pose_model, batch=4, frame_hw=(720, 1280),
                             hand_net_size=net_size, device=device)
     reset_launches()
     results = wb(frames)
+    per_call = launches_per_call(f"whole body, batch {batch}",
+                                 lambda: wb(frames))
     # the whole cascade on the body's own people (random weights: up to
     # the cap of arbitrary people, so face and hand crops are near full)
     total_ms = host_ms(lambda: wb(frames), iters)
@@ -641,7 +869,7 @@ def whole_body_phase(device, pose_model, batch=4, frame_hw=(720, 1280),
            "ms_body_device": body_device, "ms_body_with_assembly": body_ms,
            "ms_face_placed": face_ms, "ms_hand_placed": hand_ms,
            "ms_cascade": total_ms, "fps": batch * 1e3 / total_ms,
-           "launches": counts}
+           "launches": counts, "launches_per_call": per_call}
     log(f"whole body batch {batch} {frame_hw} -> {net_hw}, bf16: body "
         f"{body_device} ms on the device, {body_ms} ms with fetch and "
         f"assembly; face {face_ms} ms and hand {hand_ms} ms for "
@@ -865,6 +1093,9 @@ def main() -> int:
 
     report = {"device": kind, "nvidia_smi": smi, "build_seconds": build_s}
     model = zoo.load_pose_model(seed=0, device=device)   # BODY_25
+    if sys.argv[1:] == ["--capped-trace"]:
+        capped_trace(device, model)
+        return 0
     report["kernel"] = kernel_phase(device, model.info)
     report["sampler"] = sampler_phase(device)
     report["main_path"] = main_path_phase(device, model)
@@ -876,6 +1107,10 @@ def main() -> int:
 
     kernel, sampler = report["kernel"], report["sampler"]
     source = "openpose_tpu_torch/kernels/paf_score.cu"
+    # library_ms is null for both: no one PyTorch call computes either
+    # function (`F.grid_sample(mode="bicubic")` uses the cubic coefficient
+    # -0.75 and its own border handling; both kernels use Catmull-Rom,
+    # -0.5, with taps clamped to the map)
     log(json.dumps({"kernels": [{
         "name": "paf_score_kernel", "route": "cuda", "source": source,
         "replaces": "openpose_tpu/ops/paf_pallas.py:286",
@@ -883,13 +1118,18 @@ def main() -> int:
         + report["whole_body"]["launches"]["paf_scores_fused"],
         "max_abs_err": max(kernel["max_abs_err"], report["main_path"][
             "breakdown"]["paf_main_path_max_abs_err"]),
-        "ms": kernel["ms"], "plain_ms": kernel["plain_ms"]}, {
+        "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
+        "bound_ms": kernel["bound"]["bound_ms"],
+        "bound_by": kernel["bound"]["bound_by"], "library_ms": None}, {
         "name": "sample_bicubic_kernel", "route": "cuda", "source": source,
         "replaces": "openpose_tpu/ops/paf_pallas.py:335",
-        "launches": report["people_capped"]["launches"]["sample_bicubic"],
+        "launches": report["people_capped"]["launches"][
+            "sample_bicubic_scales"],
         "max_abs_err": max(sampler["max_abs_err"], report["people_capped"][
             "sampler_on_path"]["max_abs_err"]),
-        "ms": sampler["ms"], "plain_ms": sampler["plain_ms"]}]}))
+        "ms": sampler["ms"], "plain_ms": sampler["plain_ms"],
+        "bound_ms": sampler["bound"]["bound_ms"],
+        "bound_by": sampler["bound"]["bound_by"], "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -12,8 +12,8 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
-from openpose_tpu.params import FACE_NUMBER_PARTS
 from openpose_tpu_torch.models.zoo import Model
+from openpose_tpu_torch.params import FACE_NUMBER_PARTS
 from openpose_tpu_torch.runtime.topdown import Rect, TopDownExtractor
 
 

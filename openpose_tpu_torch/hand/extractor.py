@@ -15,8 +15,8 @@ from typing import List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from openpose_tpu.params import HAND_NUMBER_PARTS
 from openpose_tpu_torch.models.zoo import Model
+from openpose_tpu_torch.params import HAND_NUMBER_PARTS
 from openpose_tpu_torch.runtime.topdown import Rect, TopDownExtractor
 
 

@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "--ptxas-options=-v", "-shared", "-Xcompiler", "-fPIC")
 
 
-class _Library:
+class Library:
     """The loaded library, built at most once per process."""
 
     def __init__(self):
@@ -83,26 +83,26 @@ def _nvcc() -> str:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.paf_score_launch.argtypes = [
-        ctypes.POINTER(vp), ctypes.POINTER(i32), ctypes.POINTER(i32),
-        ctypes.POINTER(f64), ctypes.POINTER(f64), i32,    # per-scale arrays
-        i32, vp, vp, vp, vp,                              # C, peaks..out
-        i32, i32, i32, i32, i32, i32,                     # n parts P K th tw
-        f64, f64, f64,                                    # thresholds
-        i32, vp]                                          # device, stream
+    i64 = ctypes.c_longlong
+    per_scale = [ctypes.POINTER(vp), ctypes.POINTER(i32), ctypes.POINTER(i32),
+                 ctypes.POINTER(f64), ctypes.POINTER(f64), i32]
+    lib.paf_score_launch.argtypes = per_scale + [
+        i32, vp, vp, vp, vp,                      # C, peaks pairs map_idx out
+        i32, i32, i32, i32, i32, i32,             # n parts P K th tw
+        f64, f64, f64,                            # thresholds
+        i64, i32, vp]                             # smem limit, device, stream
     lib.paf_score_launch.restype = i32
-    lib.sample_bicubic_launch.argtypes = [
-        vp, vp, vp, vp, vp,                               # low_xy my mx vx vy
-        i32, i32, i32, i32, i32,                          # n P h w S
-        f64, f64,                                         # scale_h scale_w
-        i32, vp]                                          # device, stream
+    lib.sample_bicubic_launch.argtypes = per_scale + [
+        vp, vp, vp, vp,                           # my mx vx vy
+        i32, i32, i32,                            # n P S
+        i64, i32, vp]                             # smem limit, device, stream
     lib.sample_bicubic_launch.restype = i32
     lib.paf_score_error_string.argtypes = [i32]
     lib.paf_score_error_string.restype = ctypes.c_char_p
     return lib
 
 
-LIBRARY = _Library()
+LIBRARY = Library()
 
 
 def library() -> ctypes.CDLL:

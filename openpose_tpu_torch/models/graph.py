@@ -34,17 +34,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from openpose_tpu.models.caffe_proto import LayerSpec, NetSpec
+from openpose_tpu_torch.models.caffe_proto import LayerSpec, NetSpec
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
-_SPEC_DIR = (pathlib.Path(__file__).resolve().parents[2]
-             / "openpose_tpu" / "models" / "specs")
+_SPEC_DIR = pathlib.Path(__file__).resolve().parent / "specs"
 
 
 @functools.lru_cache(maxsize=None)
 def load_spec(name: str) -> NetSpec:
-    """Load a bundled topology spec (the JAX package's JSON files)."""
+    """Load a bundled topology spec (`models/specs/*.json`, the port's own
+    copies of the JAX package's files)."""
     with open(_SPEC_DIR / f"{name}.json") as f:
         return NetSpec.from_json(json.load(f))
 

@@ -17,9 +17,10 @@ from typing import Optional, Union
 
 import torch
 
-from openpose_tpu.models import caffe_proto
-from openpose_tpu.params import POSE_MODEL_INFO, PoseModel, PoseModelInfo
-from openpose_tpu_torch.models import graph
+from openpose_tpu_torch import device as device_rule
+from openpose_tpu_torch.models import caffe_proto, graph
+from openpose_tpu_torch.params import (
+    POSE_MODEL_INFO, PoseModel, PoseModelInfo)
 
 
 @dataclasses.dataclass
@@ -39,14 +40,17 @@ class Model:
 
 def from_params(spec: caffe_proto.NetSpec, params: graph.Params,
                 info: Optional[PoseModelInfo] = None,
-                device: Union[str, torch.device] = "cpu") -> Model:
-    return Model(spec=spec, net=graph.PoseNet(spec, params).to(device),
-                 info=info)
+                device: Union[str, torch.device, None] = None) -> Model:
+    """A model on `device`: the card when none is given (`device.resolve`)."""
+    return Model(spec=spec, net=graph.PoseNet(spec, params).to(
+        device_rule.resolve(device)), info=info)
 
 
-def _load(spec_name: str, seed: int, device: Union[str, torch.device],
+def _load(spec_name: str, seed: int,
+          device: Union[str, torch.device, None],
           caffemodel: Optional[str],
           info: Optional[PoseModelInfo] = None) -> Model:
+    device = device_rule.resolve(device)     # before any weights are made
     spec = graph.load_spec(spec_name)
     if caffemodel is not None:
         blobs = caffe_proto.parse_caffemodel(
@@ -58,23 +62,26 @@ def _load(spec_name: str, seed: int, device: Union[str, torch.device],
 
 
 def load_pose_model(model: PoseModel = PoseModel.BODY_25, seed: int = 0,
-                    device: Union[str, torch.device] = "cpu",
+                    device: Union[str, torch.device, None] = None,
                     caffemodel: Optional[str] = None) -> Model:
     """He-normal weights from `torch.Generator().manual_seed(seed)`, or the
-    weights of a Caffe `.caffemodel` when one is given."""
+    weights of a Caffe `.caffemodel` when one is given.  On the card unless
+    `device` says otherwise, as every loader here."""
     if model.experimental:
         raise ValueError(f"PoseModel.{model.name} has no bundled topology")
     info = POSE_MODEL_INFO[model]
     return _load(info.spec, seed, device, caffemodel, info)
 
 
-def load_face_model(seed: int = 1, device: Union[str, torch.device] = "cpu",
+def load_face_model(seed: int = 1,
+                    device: Union[str, torch.device, None] = None,
                     caffemodel: Optional[str] = None) -> Model:
     """The 70-keypoint face net (`face_70.json`); the JAX package's seed."""
     return _load("face_70", seed, device, caffemodel)
 
 
-def load_hand_model(seed: int = 2, device: Union[str, torch.device] = "cpu",
+def load_hand_model(seed: int = 2,
+                    device: Union[str, torch.device, None] = None,
                     caffemodel: Optional[str] = None) -> Model:
     """The 21-keypoint hand net (`hand_21.json`); the JAX package's seed."""
     return _load("hand_21", seed, device, caffemodel)

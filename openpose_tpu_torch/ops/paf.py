@@ -16,7 +16,7 @@ the samples whose projection on the unit AB vector exceeds
     plain version `paf_scores_multiscale_reference`;
   - sampled (max_peaks <= 32, the people-capped budgets): geometry and
     scoring in torch ops around the sampling kernel; plain version of the
-    sampler `sample_bicubic_reference`.
+    sampler `sample_bicubic_scales_reference`.
 
 The JAX package's `fast_peaks` tier ladder is TPU tuning and is not ported:
 its output equals the untiered one.  Output: [N, P, K, K] float32.
@@ -72,16 +72,26 @@ def _line_geometry(peaks: torch.Tensor, pairs: torch.Tensor,
 def _finalize(proj: torch.Tensor, geo: Dict[str, torch.Tensor],
               hw: Tuple[int, int], inter_threshold: float,
               inter_min_above_threshold: float,
-              default_nms_threshold: float) -> torch.Tensor:
-    """Per-sample projections [..., L] -> pair scores.  The samples are
-    summed one at a time in line order, as the CUDA kernel sums them."""
+              default_nms_threshold: float,
+              in_order: bool = True) -> torch.Tensor:
+    """Per-sample projections [..., L] -> pair scores.  in_order: the
+    samples are summed one at a time in line order, as the fused CUDA
+    kernel sums them (its plain version must, to stay bit-equal); else in
+    one reduction, a handful of launches instead of 125, for the sampled
+    backend, which is held to no kernel's order."""
     h, w = hw
-    cnt = torch.zeros_like(geo["norm"])
-    ssum = torch.zeros_like(geo["norm"])
-    for l in range(MAX_LINE_SAMPLES):
-        above = (proj[..., l] > inter_threshold) & (l < geo["n_samples"])
-        cnt = cnt + above.to(torch.float32)
-        ssum = ssum + torch.where(above, proj[..., l], 0.0)
+    if in_order:
+        cnt = torch.zeros_like(geo["norm"])
+        ssum = torch.zeros_like(geo["norm"])
+        for l in range(MAX_LINE_SAMPLES):
+            above = (proj[..., l] > inter_threshold) & (l < geo["n_samples"])
+            cnt = cnt + above.to(torch.float32)
+            ssum = ssum + torch.where(above, proj[..., l], 0.0)
+    else:
+        lm = torch.arange(MAX_LINE_SAMPLES, device=proj.device)
+        above = (proj > inter_threshold) & (lm < geo["n_samples"][..., None])
+        cnt = above.sum(dim=-1).to(torch.float32)
+        ssum = torch.where(above, proj, 0.0).sum(dim=-1)
     accepted = cnt / geo["n_samples"] > inter_min_above_threshold
     score = torch.where(accepted, ssum / torch.clamp(cnt, min=1.0), -1.0)
     close_thr = float(np.sqrt(float(w * h)) / 150.0)
@@ -193,6 +203,22 @@ def sample_bicubic_reference(low_xy: torch.Tensor, my: torch.Tensor,
             _tap_sum(low[:, :, 1], ty, wy, tx, wx, ws))
 
 
+def sample_bicubic_scales_reference(
+        lows: Sequence[torch.Tensor], my: torch.Tensor, mx: torch.Tensor,
+        scales: Sequence[Tuple[float, float]]
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the sampling kernel's multi-scale entry
+    (`paf_cuda.sample_bicubic_scales`): `sample_bicubic_reference` of each
+    scale's planes lows[s] [N, P, 2, hs, ws] by scales[s] = (scale_h,
+    scale_w), summed in scale order."""
+    acc_x = acc_y = None
+    for low_xy, (scale_h, scale_w) in zip(lows, scales):
+        vx, vy = sample_bicubic_reference(low_xy, my, mx, scale_h, scale_w)
+        acc_x = vx if acc_x is None else acc_x + vx
+        acc_y = vy if acc_y is None else acc_y + vy
+    return acc_x, acc_y
+
+
 def _scale_factors(sources: Sequence[torch.Tensor],
                    scale_ratios: Sequence[float],
                    target_hw: Tuple[int, int]):
@@ -256,19 +282,20 @@ def _reference_block(sources, scale_ratios, target_hw, peaks, pairs, map_idx,
 def sampler_args(sources: Sequence[torch.Tensor],
                  scale_ratios: Sequence[float], target_hw: Tuple[int, int],
                  geo: Dict[str, torch.Tensor], map_idx: torch.Tensor):
-    """The sampler's arguments for each scale of the sampled backend:
-    (low_xy [N, P, 2, hs, ws], my, mx [N, P, K * K * L] int32, scale_h,
-    scale_w) for the pairs of `geo` (`_line_geometry`) and their map_idx
-    rows."""
+    """The sampler's arguments for the sampled backend, all scales at once:
+    (lows, my, mx, scales) with lows[s] [N, P, 2, hs, ws] the x/y planes of
+    the pairs of `geo` (`_line_geometry`) by their map_idx rows, my, mx
+    [N, P, K * K * L] int32 and scales[s] = (scale_h, scale_w)."""
     n, p = geo["my"].shape[:2]
     my = geo["my"].to(torch.int32).reshape(n, p, -1)
     mx = geo["mx"].to(torch.int32).reshape(n, p, -1)
     mi = map_idx.long()
-    for src, (scale_h, scale_w) in zip(
-            sources, _scale_factors(sources, scale_ratios, target_hw)):
+    lows = []
+    for src in sources:
         chans = src.to(torch.float32).permute(0, 3, 1, 2)   # [N, C, hs, ws]
-        low_xy = torch.stack([chans[:, mi[:, 0]], chans[:, mi[:, 1]]], dim=2)
-        yield low_xy.contiguous(), my, mx, scale_h, scale_w
+        lows.append(torch.stack([chans[:, mi[:, 0]], chans[:, mi[:, 1]]],
+                                dim=2).contiguous())
+    return lows, my, mx, _scale_factors(sources, scale_ratios, target_hw)
 
 
 def paf_scores_sampled(
@@ -278,9 +305,10 @@ def paf_scores_sampled(
         inter_min_above_threshold: float,
         default_nms_threshold: float) -> torch.Tensor:
     """The unfused backend, counterpart of the non-Pallas branch of
-    `paf.py::_multiscale_impl`: line geometry, then for each scale the
-    sampler (`paf_cuda.sample_bicubic`) over every pair's x/y maps, summed
-    over scales and scaled by 1 / n_scales, then the same finalize.
+    `paf.py::_multiscale_impl`: line geometry, then the sampler
+    (`paf_cuda.sample_bicubic_scales`: every pair's x/y maps of all scales
+    in one launch, summed over scales in order), scaled by 1 / n_scales,
+    then the same finalize.
 
     Blocked over pairs, as JAX's `lax.map` is, so that the per-sample
     temporaries stay near `SAMPLED_BLOCK_SAMPLES` (at K = 127, batch 8 one
@@ -293,17 +321,13 @@ def paf_scores_sampled(
     for p0 in range(0, p, block):
         geo = _line_geometry(peaks, pairs[p0:p0 + block], target_hw)
         shape = geo["mx"].shape                        # [N, p, K, K, L]
-        acc_x = acc_y = None
-        for args in sampler_args(sources, scale_ratios, target_hw, geo,
-                                 map_idx[p0:p0 + block]):
-            vx, vy = paf_cuda.sample_bicubic(*args)
-            acc_x = vx if acc_x is None else acc_x + vx
-            acc_y = vy if acc_y is None else acc_y + vy
+        acc_x, acc_y = paf_cuda.sample_bicubic_scales(*sampler_args(
+            sources, scale_ratios, target_hw, geo, map_idx[p0:p0 + block]))
         proj = (geo["ux"][..., None] * (acc_x * inv).reshape(shape)
                 + geo["uy"][..., None] * (acc_y * inv).reshape(shape))
         out.append(_finalize(proj, geo, target_hw, inter_threshold,
                              inter_min_above_threshold,
-                             default_nms_threshold))
+                             default_nms_threshold, in_order=False))
     return torch.cat(out, dim=1)
 
 

@@ -59,9 +59,13 @@ def crop_affine_batch(image: torch.Tensor, transforms: torch.Tensor,
     resize._require_full_f32(img)
     # rows, then columns
     rows = torch.matmul(wy, img.reshape(b, 1, h, w * c))      # [B, P, oh, W*C]
-    out = torch.matmul(wx.reshape(b * p, 1, out_w, w),
-                       rows.reshape(b * p, out_h, w, c))      # [BP, oh, ow, C]
-    out = out.reshape(b, p, out_h, out_w, c)
+    # one batched product per crop, [ow, W] x [W, oh * C]: a broadcast of
+    # wx over the rows would materialise [BP, oh, ow, W] (39 GiB for 64
+    # crops of a 720x1280 frame)
+    cols = torch.bmm(wx.reshape(b * p, out_w, w),
+                     rows.reshape(b * p, out_h, w, c).permute(0, 2, 1, 3)
+                     .reshape(b * p, w, out_h * c))           # [BP, ow, oh*C]
+    out = cols.reshape(b, p, out_w, out_h, c).permute(0, 1, 3, 2, 4)
     return out[0] if single else out
 
 

@@ -20,13 +20,14 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from openpose_tpu.ops import assembly
-from openpose_tpu.params import (
-    POSE_MAX_PEOPLE, PoseModel, default_connect_params)
-from openpose_tpu.pose import scaler
+from openpose_tpu_torch import device as device_rule
 from openpose_tpu_torch.models import graph
 from openpose_tpu_torch.models.zoo import Model
-from openpose_tpu_torch.ops import maximum, nms, paf, resize, warp
+from openpose_tpu_torch.ops import (
+    assembly, maximum, nms, paf, resize, warp)
+from openpose_tpu_torch.params import (
+    POSE_MAX_PEOPLE, PoseModel, default_connect_params)
+from openpose_tpu_torch.pose import scaler
 
 
 Rect = Tuple[float, float, float, float]
@@ -75,8 +76,7 @@ class PoseInference:
         if net_bypass and (scale_number != 1 or frame_hw is not None):
             raise ValueError("net_bypass supports only single-scale, "
                              "pre-sized inputs (like the reference hook)")
-        self.device = torch.device(device) if device is not None \
-            else model.device
+        self.device = device_rule.resolve(device)
         model.net.to(self.device)
         self.model = model
         self.net_hw = net_hw
@@ -230,8 +230,7 @@ class TopDownInference:
                  people_cap: int = 8,
                  device: Union[str, torch.device, None] = None,
                  compute_dtype: torch.dtype = torch.bfloat16):
-        self.device = torch.device(device) if device is not None \
-            else model.device
+        self.device = device_rule.resolve(device)
         model.net.to(self.device)
         self.model = model
         self.net_size = net_size

@@ -4,8 +4,7 @@ Counterpart of `openpose_tpu/pose/extractor.py`.  Device side, per frame:
 per-scale resize + normalize -> CNN -> resize-and-merge of the part
 channels -> NMS -> PAF pair scoring (a CUDA kernel on a card: the fused
 scorer above 32 peaks, the sampler below).  Host side:
-greedy people assembly (`openpose_tpu.ops.assembly`, shared with the JAX
-package).  Geometry follows PoseExtractorCaffe::forwardPass: the merge
+greedy people assembly (`ops/assembly.py`).  Geometry follows PoseExtractorCaffe::forwardPass: the merge
 target is the scale-0 net input size, and the NMS offset is
 0.5 / scale_net_to_output.
 """
@@ -18,13 +17,13 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from openpose_tpu.io import json_io
-from openpose_tpu.ops import assembly
-from openpose_tpu.params import (
-    POSE_MAX_PEOPLE, ConnectParams, PoseModel, default_connect_params)
-from openpose_tpu.pose import scaler
+from openpose_tpu_torch import device as device_rule
+from openpose_tpu_torch.io import json_io
 from openpose_tpu_torch.models.zoo import Model
-from openpose_tpu_torch.ops import nms, paf, resize
+from openpose_tpu_torch.ops import assembly, nms, paf, resize
+from openpose_tpu_torch.params import (
+    POSE_MAX_PEOPLE, ConnectParams, PoseModel, default_connect_params)
+from openpose_tpu_torch.pose import scaler
 
 
 @dataclasses.dataclass
@@ -44,7 +43,7 @@ class PosePrediction:
     net_input_sizes: Tuple[Tuple[int, int], ...] = ()   # [(w, h), ...]
 
     def people_json(self) -> dict:
-        """The frame's people JSON (`openpose_tpu.io.json_io` schema)."""
+        """The frame's people JSON (`io/json_io.py` schema)."""
         return json_io.people_json(pose_keypoints=self.keypoints)
 
 
@@ -56,8 +55,7 @@ class PoseExtractor:
                  compute_dtype: torch.dtype = torch.bfloat16,
                  connect_params: Optional[ConnectParams] = None,
                  device: Union[str, torch.device, None] = None):
-        self.device = torch.device(device) if device is not None \
-            else model.device
+        self.device = device_rule.resolve(device)
         model.net.to(self.device)
         self.model = model
         self.info = model.info

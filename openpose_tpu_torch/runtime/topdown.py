@@ -14,6 +14,7 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
+from openpose_tpu_torch import device as device_rule
 from openpose_tpu_torch.models.zoo import Model
 from openpose_tpu_torch.parallel.inference import Rect, TopDownInference
 
@@ -25,8 +26,7 @@ class TopDownExtractor:
     def __init__(self, model: Model, net_size: int = 368,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  device: Union[str, torch.device, None] = None):
-        self.device = torch.device(device) if device is not None \
-            else model.device
+        self.device = device_rule.resolve(device)
         self.model = model
         self.net_size = net_size
         self.compute_dtype = compute_dtype

@@ -7,7 +7,7 @@ without the mesh:
     -> body stage (`PoseInference`: per-scale resize -> CNN -> merge -> NMS
        -> PAF scoring)
     -> host: greedy assembly, KeepTopNPeople, face and hand rectangles
-       (the shared `face/detector.py`, `hand/detector.py`)
+       (`face/detector.py`, `hand/detector.py`)
     -> face stage (`TopDownInference`: batched crop -> CNN -> argmax)
     -> hand stage (the same; left hands mirrored)
     -> host: crop keypoints mapped back to frame pixels.
@@ -21,12 +21,13 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from openpose_tpu.face.detector import detect_faces
-from openpose_tpu.hand.detector import detect_hands
-from openpose_tpu.params import FACE_NUMBER_PARTS, HAND_NUMBER_PARTS, PoseModel
+from openpose_tpu_torch.face.detector import detect_faces
+from openpose_tpu_torch.hand.detector import detect_hands
 from openpose_tpu_torch.models.zoo import Model
 from openpose_tpu_torch.parallel.inference import (
     PoseInference, TopDownInference)
+from openpose_tpu_torch.params import (
+    FACE_NUMBER_PARTS, HAND_NUMBER_PARTS, PoseModel)
 
 
 @dataclasses.dataclass

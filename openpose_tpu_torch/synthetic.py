@@ -5,8 +5,9 @@
   channels.  The numpy twin of `openpose_tpu.train.make_targets`; fed to
   `PoseExtractor.forward(net_output=...)` it must assemble exactly the
   people placed.
-* `random_people`: keypoints of standing people spread across a frame,
-  `openpose_tpu.scenes.random_people` reused as is.
+* `random_people`: keypoints of standing people spread across a frame; with
+  its template and `BODY25_DRAW_PAIRS` the port's own copy of what it needs
+  of `openpose_tpu/scenes.py` (same numbers from the same seed).
 * `render_scene_image`: a BGR frame of stick figures (disks at the joints,
   lines along the limbs) for driving the CNN path; a numpy stand-in for
   `openpose_tpu.scenes.render_scene_image`, which needs OpenCV.
@@ -18,9 +19,80 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from openpose_tpu.scenes import BODY25_DRAW_PAIRS, random_people
-
 __all__ = ["make_targets", "random_people", "render_scene_image"]
+
+# Standing-person template for the 25 BODY_25 parts, unit height, origin at
+# the nose, x right / y down (part order: poseParameters.cpp:7-33).
+BODY25_TEMPLATE = np.array([
+    (0.000, 0.000),    # 0  Nose
+    (0.000, 0.120),    # 1  Neck
+    (-0.100, 0.120),   # 2  RShoulder
+    (-0.140, 0.260),   # 3  RElbow
+    (-0.160, 0.400),   # 4  RWrist
+    (0.100, 0.120),    # 5  LShoulder
+    (0.140, 0.260),    # 6  LElbow
+    (0.160, 0.400),    # 7  LWrist
+    (0.000, 0.450),    # 8  MidHip
+    (-0.060, 0.450),   # 9  RHip
+    (-0.070, 0.650),   # 10 RKnee
+    (-0.080, 0.850),   # 11 RAnkle
+    (0.060, 0.450),    # 12 LHip
+    (0.070, 0.650),    # 13 LKnee
+    (0.080, 0.850),    # 14 LAnkle
+    (-0.025, -0.030),  # 15 REye
+    (0.025, -0.030),   # 16 LEye
+    (-0.055, -0.010),  # 17 REar
+    (0.055, -0.010),   # 18 LEar
+    (0.100, 0.920),    # 19 LBigToe
+    (0.120, 0.910),    # 20 LSmallToe
+    (0.070, 0.880),    # 21 LHeel
+    (-0.100, 0.920),   # 22 RBigToe
+    (-0.120, 0.910),   # 23 RSmallToe
+    (-0.070, 0.880),   # 24 RHeel
+], np.float32)
+
+# limbs drawn between BODY_25 parts
+BODY25_DRAW_PAIRS = [
+    (1, 8), (1, 2), (1, 5), (2, 3), (3, 4), (5, 6), (6, 7), (8, 9),
+    (9, 10), (10, 11), (8, 12), (12, 13), (13, 14), (1, 0), (0, 15),
+    (15, 17), (0, 16), (16, 18), (14, 19), (19, 20), (14, 21), (11, 22),
+    (22, 23), (11, 24)]
+
+
+def random_people(rng: np.random.RandomState, n_people: int,
+                  frame_hw: Tuple[int, int],
+                  height_range: Tuple[float, float] = (180.0, 300.0),
+                  jitter: float = 2.0,
+                  min_spacing: float = 90.0) -> np.ndarray:
+    """[n_people, 25, 3] keypoints for one frame; all keypoints visible.
+
+    People are horizontally spread (centers at least `min_spacing` px apart)
+    so distinct people produce distinct heatmap blobs, with per-keypoint
+    jitter so poses are not identical."""
+    h, w = frame_hw
+    people = np.zeros((n_people, 25, 3), np.float32)
+    # candidate x-centers, spaced then shuffled
+    margin = 60.0
+    slots = np.linspace(margin, w - margin,
+                        max(n_people, int((w - 2 * margin) // min_spacing)))
+    rng.shuffle(slots)
+    for p in range(n_people):
+        height = rng.uniform(*height_range)
+        height = min(height, (h - 20.0) / 0.95)  # template spans -0.03..0.92
+        cx = slots[p % len(slots)] + rng.uniform(-15, 15)
+        top = rng.uniform(8.0, max(9.0, h - height * 0.95 - 8.0))
+        pts = BODY25_TEMPLATE.copy()
+        if rng.rand() < 0.5:
+            pts[:, 0] = -pts[:, 0]          # mirrored person
+        kp = pts * height
+        kp[:, 0] += cx
+        kp[:, 1] += top + height * 0.03     # nose sits 3% below the top
+        kp += rng.uniform(-jitter, jitter, kp.shape)
+        kp[:, 0] = np.clip(kp[:, 0], 2.0, w - 3.0)
+        kp[:, 1] = np.clip(kp[:, 1], 2.0, h - 3.0)
+        people[p, :, :2] = kp
+        people[p, :, 2] = 1.0
+    return people
 
 
 def make_targets(keypoints: np.ndarray, pairs: np.ndarray,

@@ -13,6 +13,8 @@ most 0.1% of the scores may differ, each by at most 0.02.  Then one test for eac
 and `net_resolution_dynamic`, the inference budget and thresholds).
 """
 
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -42,7 +44,7 @@ def _port(jax_model):
     params = {k: {kk: np.asarray(vv) for kk, vv in v.items()}
               for k, v in jax_model.params.items()}
     return zoo.from_params(jax_model.spec, checkpoint.from_jax_params(params),
-                           jax_model.info)
+                           jax_model.info, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -94,7 +96,8 @@ def test_inference_matches_sharded_jax(mpi, mode):
         inputs = rng.uniform(-0.2, 1.0, (4, 8, 10, 44)).astype(np.float32)
     jax_inf = ShardedPoseInference(jax_model, _mesh(4),
                                    compute_dtype=jnp.float32, **kw)
-    port_inf = PoseInference(port_model, compute_dtype=torch.float32, **kw)
+    port_inf = PoseInference(port_model, compute_dtype=torch.float32, **kw,
+                             device="cpu")
     peaks, _ = _compare(jax_inf, port_inf, inputs)
     assert peaks.shape == (4, 15, 17, 3)
 
@@ -108,7 +111,8 @@ def test_inference_body25_raw_frames_matches_sharded_jax(body25):
     kw = dict(net_hw=(48, 64), frame_hw=(72, 96))
     jax_inf = ShardedPoseInference(jax_model, _mesh(2),
                                    compute_dtype=jnp.float32, **kw)
-    port_inf = PoseInference(port_model, compute_dtype=torch.float32, **kw)
+    port_inf = PoseInference(port_model, compute_dtype=torch.float32, **kw,
+                             device="cpu")
     peaks, _ = _compare(jax_inf, port_inf, frames)
     assert peaks.shape == (2, 25, 128, 3)
 
@@ -117,7 +121,8 @@ def test_net_bypass_rejects_multiscale_and_raw_frames(mpi):
     _, port_model = mpi
     for kw in (dict(scale_number=2), dict(frame_hw=(96, 128))):
         with pytest.raises(ValueError, match="net_bypass"):
-            PoseInference(port_model, net_hw=(64, 80), net_bypass=True, **kw)
+            PoseInference(port_model, net_hw=(64, 80), net_bypass=True, **kw,
+                          device="cpu")
 
 
 @pytest.mark.parametrize("max_peaks,count", [
@@ -135,7 +140,7 @@ def test_fetch_buckets_match_jax(mpi, max_peaks, count):
     jax_inf = ShardedPoseInference(jax_model, _mesh(2), net_hw=(64, 80),
                                    max_peaks=max_peaks)
     port_inf = PoseInference(port_model, net_hw=(64, 80),
-                             max_peaks=max_peaks)
+                             max_peaks=max_peaks, device="cpu")
     want = jax_inf.fetch(jnp.asarray(peaks), jnp.asarray(scores))
     got = port_inf.fetch(torch.from_numpy(peaks), torch.from_numpy(scores))
     for g, w in zip(got, want):
@@ -156,7 +161,7 @@ def test_extractor_takes_max_peaks(body25):
                             compute_dtype=jnp.float32).forward(
         image, net_resolution=(80, 64))
     got = PoseExtractor(port_model, max_peaks=16,
-                        compute_dtype=torch.float32).forward(
+                        compute_dtype=torch.float32, device="cpu").forward(
         image, net_resolution=(80, 64))
     assert got.peaks.shape == want.peaks.shape == (25, 17, 3)
     np.testing.assert_array_equal(got.peaks[:, 0, 0], want.peaks[:, 0, 0])
@@ -189,8 +194,10 @@ def test_extractor_maximize_positives_matches_jax(body25):
     image = np.zeros((h, w, 3), np.float32)
     for flag in (False, True):
         ex = PoseExtractor(port_model, maximize_positives=flag,
-                           compute_dtype=torch.float32)
-        assert ex.connect == default_connect_params(PoseModel.BODY_25, flag)
+                           compute_dtype=torch.float32, device="cpu")
+        # the port's own ConnectParams class: same fields
+        assert dataclasses.asdict(ex.connect) == dataclasses.asdict(
+            default_connect_params(PoseModel.BODY_25, flag))
         got = ex.forward(image, net_resolution=(w, h), net_output=net_output)
         want = JaxPoseExtractor(jax_model, maximize_positives=flag,
                                 compute_dtype=jnp.float32).forward(
@@ -201,7 +208,8 @@ def test_extractor_maximize_positives_matches_jax(body25):
         np.testing.assert_allclose(got.scores, want.scores, rtol=1e-4,
                                    atol=1e-5)
     custom = default_connect_params(PoseModel.BODY_25, True)
-    assert PoseExtractor(port_model, connect_params=custom).connect is custom
+    assert PoseExtractor(port_model, connect_params=custom,
+                         device="cpu").connect is custom
 
 
 def test_extractor_keep_heatmaps_and_dynamic_resolution(body25):
@@ -214,7 +222,8 @@ def test_extractor_keep_heatmaps_and_dynamic_resolution(body25):
                   keep_heatmaps=True, net_resolution_dynamic=0.5)
     want = JaxPoseExtractor(jax_model, compute_dtype=jnp.float32).forward(
         image, **kwargs)
-    got = PoseExtractor(port_model, compute_dtype=torch.float32).forward(
+    got = PoseExtractor(port_model, compute_dtype=torch.float32,
+                        device="cpu").forward(
         image, **kwargs)
     assert got.net_input_sizes == want.net_input_sizes
     assert got.net_input_sizes[0][0] < 208       # clipped below 160 / 48 * 64
@@ -222,7 +231,7 @@ def test_extractor_keep_heatmaps_and_dynamic_resolution(body25):
     assert got.heatmaps.shape[-1] == jax_model.info.heatmap_channels
     np.testing.assert_allclose(got.heatmaps, want.heatmaps, rtol=1e-4,
                                atol=1e-4)
-    assert PoseExtractor(port_model).forward(
+    assert PoseExtractor(port_model, device="cpu").forward(
         image, net_resolution=(-1, 64)).heatmaps is None
 
 
@@ -232,9 +241,11 @@ def test_inference_takes_budget_and_thresholds(mpi):
     frames = np.random.RandomState(5).randint(0, 255, (2, 64, 80, 3)) \
         .astype(np.uint8)
     loose = PoseInference(port_model, net_hw=(64, 80), max_peaks=8,
-                          nms_threshold=0.01, compute_dtype=torch.float32)
+                          nms_threshold=0.01, compute_dtype=torch.float32,
+                          device="cpu")
     strict = PoseInference(port_model, net_hw=(64, 80), max_peaks=8,
-                           nms_threshold=0.6, compute_dtype=torch.float32)
+                           nms_threshold=0.6, compute_dtype=torch.float32,
+                           device="cpu")
     assert loose.thresholds == (0.01, 0.05, 0.95)
     peaks_loose, scores = loose(frames)
     peaks_strict, _ = strict(frames)

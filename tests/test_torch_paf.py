@@ -176,8 +176,8 @@ def test_wrapper_on_cpu_runs_plain_version_without_launch():
         [torch.from_numpy(src)], [1.0], hw, torch.from_numpy(peaks),
         torch.from_numpy(pairs), torch.from_numpy(map_idx), 0.05, 0.5, 0.05)
     assert paf_cuda.paf_scores_fused.launches == before
-    np.testing.assert_array_equal(
-        got.numpy(), _port([src], [1.0], hw, peaks, pairs, map_idx))
+    want = _jax([src], [1.0], hw, peaks, pairs, map_idx, use_pallas=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("change,match", [

@@ -37,7 +37,7 @@ def models():
               for k, v in jax_model.params.items()}
     port_model = zoo.from_params(jax_model.spec,
                                  checkpoint.from_jax_params(params),
-                                 jax_model.info)
+                                 jax_model.info, device="cpu")
     return jax_model, port_model
 
 
@@ -62,7 +62,8 @@ def test_extractor_matches_jax_on_an_image(models, scale_number):
     kwargs = dict(net_resolution=(-1, 64), scale_number=scale_number)
     want = JaxPoseExtractor(jax_model, compute_dtype=jnp.float32).forward(
         image, **kwargs)
-    got = PoseExtractor(port_model, compute_dtype=torch.float32).forward(
+    got = PoseExtractor(port_model, compute_dtype=torch.float32,
+                        device="cpu").forward(
         image, **kwargs)
     assert want.peaks[:, 0, 0].sum() > 0, "the scene must produce peaks"
     _assert_predictions_match(got, want)
@@ -73,7 +74,8 @@ def test_extractor_scores_match_jax(models):
     jax_model, port_model = models
     image = np.random.RandomState(1).randint(0, 255, (64, 80, 3)) \
         .astype(np.uint8)
-    port = PoseExtractor(port_model, compute_dtype=torch.float32)
+    port = PoseExtractor(port_model, compute_dtype=torch.float32,
+                         device="cpu")
     from openpose_tpu.pose import scaler
     plan = scaler.extract_scales((80, 64), (80, 64))
     img = torch.from_numpy(image.astype(np.float32)[None])
@@ -109,7 +111,8 @@ def test_injected_people_match_jax(models, centers):
     image = np.zeros((h, w, 3), np.float32)
     want = JaxPoseExtractor(jax_model, compute_dtype=jnp.float32).forward(
         image, net_resolution=(w, h), net_output=net_output)
-    got = PoseExtractor(port_model, compute_dtype=torch.float32).forward(
+    got = PoseExtractor(port_model, compute_dtype=torch.float32,
+                        device="cpu").forward(
         image, net_resolution=(w, h), net_output=net_output)
     _assert_predictions_match(got, want)
     assert got.keypoints.shape[0] >= len(centers)
@@ -144,10 +147,11 @@ def test_batched_inference_matches_extractor(models):
     frames = np.random.RandomState(2).randint(0, 255, (2, 48, 64, 3)) \
         .astype(np.uint8)
     inference = PoseInference(port_model, net_hw=(48, 64),
-                              compute_dtype=torch.float32)
+                              compute_dtype=torch.float32, device="cpu")
     peaks, scores = inference(frames)
     assert peaks.shape == (2, 25, 128, 3) and scores.shape == (2, 26, 127, 127)
-    extractor = PoseExtractor(port_model, compute_dtype=torch.float32)
+    extractor = PoseExtractor(port_model, compute_dtype=torch.float32,
+                              device="cpu")
     for b in range(2):
         # batch 1 and batch 2 convolutions sum in different orders
         pred = extractor.forward(frames[b], net_resolution=(64, 48))

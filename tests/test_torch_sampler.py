@@ -85,9 +85,9 @@ def test_sampler_is_batched_over_frames_and_handles_off_grid_pixels():
 
 def test_sampler_wrapper_on_cpu_runs_plain_version_without_launch():
     low, my, mx = _sampler_scene()
-    before = paf_cuda.sample_bicubic.launches
+    before = paf_cuda.sample_bicubic_scales.launches
     got = _port_sample(low, my, mx, 8.0, 8.0)
-    assert paf_cuda.sample_bicubic.launches == before
+    assert paf_cuda.sample_bicubic_scales.launches == before
     want = paf.sample_bicubic_reference(
         torch.from_numpy(low[None]), torch.from_numpy(my[None]),
         torch.from_numpy(mx[None]), 8.0, 8.0)
@@ -113,7 +113,65 @@ def test_sampler_wrapper_input_checks(change, match):
     else:
         my = torch.zeros(2, 10, 3, dtype=torch.int32).transpose(1, 2)
     with pytest.raises(ValueError, match=match):
-        paf_cuda._check_sampler_inputs(low, my, mx)
+        paf_cuda._check_sampler_inputs([low], my, mx)
+
+
+@pytest.mark.parametrize("n_scales", [1, 2, 4])
+def test_multi_scale_sampler_is_the_in_order_sum(n_scales):
+    """The multi-scale entry (one launch for all scales on a card) equals
+    the per-scale samplers summed in scale order, bit for bit, through the
+    wrapper and through its plain version; one scale is `sample_bicubic`."""
+    rng = np.random.RandomState(5)
+    sizes = [(12, 16), (9, 12), (6, 8), (3, 4)][:n_scales]
+    scales = [(96 / h, 128 / w) for h, w in sizes]
+    lows = [torch.from_numpy(rng.uniform(-1, 1, (2, 3, 2, h, w))
+                             .astype(np.float32)) for h, w in sizes]
+    my = torch.from_numpy(rng.randint(-5, 101, (2, 3, 77)).astype(np.int32))
+    mx = torch.from_numpy(rng.randint(-5, 133, (2, 3, 77)).astype(np.int32))
+    want_x = want_y = None
+    for low, (sh, sw) in zip(lows, scales):
+        vx, vy = paf.sample_bicubic_reference(low, my, mx, sh, sw)
+        want_x = vx if want_x is None else want_x + vx
+        want_y = vy if want_y is None else want_y + vy
+    for fn in (paf.sample_bicubic_scales_reference,
+               paf_cuda.sample_bicubic_scales):
+        got_x, got_y = fn(lows, my, mx, scales)
+        np.testing.assert_array_equal(got_x.numpy(), want_x.numpy())
+        np.testing.assert_array_equal(got_y.numpy(), want_y.numpy())
+    if n_scales == 1:
+        one = paf_cuda.sample_bicubic(lows[0], my, mx, *scales[0])
+        np.testing.assert_array_equal(one[0].numpy(), want_x.numpy())
+
+
+def test_multi_scale_sampler_input_checks():
+    low = torch.zeros(2, 3, 2, 6, 7)
+    my = torch.zeros(2, 3, 10, dtype=torch.int32)
+    with pytest.raises(ValueError, match="scales"):
+        paf_cuda.sample_bicubic_scales([low, low], my, my, [(8.0, 8.0)])
+    with pytest.raises(ValueError, match="scales supported"):
+        paf_cuda._check_sampler_inputs([low] * 9, my, my)
+    with pytest.raises(ValueError, match="one N, P"):
+        paf_cuda._check_sampler_inputs([low, torch.zeros(2, 4, 2, 3, 4)],
+                                       my, my)
+
+
+def test_sampler_args_gathers_every_scale():
+    """`paf.sampler_args`: each scale's planes are the pairs' x and y
+    channels, NCHW, and the scales are `_scale_factors`."""
+    sources, ratios, hw, peaks, pairs, map_idx = _paf_scene([5, 4, 6], 8, 3)
+    srcs = [torch.from_numpy(s) for s in sources]
+    geo = paf._line_geometry(torch.from_numpy(peaks),
+                             torch.from_numpy(pairs), hw)
+    lows, my, mx, scales = paf.sampler_args(srcs, ratios, hw, geo,
+                                            torch.from_numpy(map_idx))
+    assert scales == paf._scale_factors(srcs, ratios, hw)
+    assert my.shape == mx.shape == (2, 3, 8 * 8 * 25) and my.dtype == torch.int32
+    for low, src in zip(lows, sources):
+        assert low.is_contiguous()
+        for p in range(3):
+            for c in (0, 1):
+                np.testing.assert_array_equal(low[:, p, c].numpy(),
+                                              src[..., map_idx[p, c]])
 
 
 def _paf_scene(counts, max_peaks, n_scales, seed=3, batch=2):
@@ -207,3 +265,20 @@ def test_backends_agree():
     fused = paf.paf_scores_multiscale(*args, use_fused=True).numpy()
     sampled = paf.paf_scores_multiscale(*args, use_fused=False).numpy()
     np.testing.assert_allclose(sampled, fused, rtol=1e-4, atol=1e-5)
+
+
+def test_finalize_in_one_reduction_matches_in_order():
+    """The sampled backend sums a line's samples in one reduction; the
+    fused kernel's plain version one at a time.  Same counts, sums equal to
+    float32 rounding (1e-6 on means of values below 1)."""
+    sources, ratios, hw, peaks, pairs, _ = _paf_scene([7, 8, 6], 8, 1)
+    geo = paf._line_geometry(torch.from_numpy(peaks), torch.from_numpy(pairs),
+                             hw)
+    proj = torch.from_numpy(np.random.RandomState(4).uniform(
+        -0.5, 1.0, tuple(geo["mx"].shape)).astype(np.float32))
+    args = (proj, geo, hw, 0.05, 0.5, 0.05)
+    want = paf._finalize(*args)
+    got = paf._finalize(*args, in_order=False)
+    assert (want > 0).sum() > 20 and (want == -1).sum() > 20
+    np.testing.assert_array_equal(got.numpy() == -1, want.numpy() == -1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)

@@ -1,0 +1,286 @@
+"""The port stands alone: `openpose_tpu_torch` and `chip_smoke.py` import
+nothing of `openpose_tpu` and nothing of JAX, and the port's own copies of
+the JAX package's host modules give what the originals give.
+
+Only this file (and the other `tests/test_torch_*.py`) imports both
+packages: that is how the two are compared.
+"""
+
+import ast
+import dataclasses
+import json
+import pathlib
+import re
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+import openpose_tpu.params as jparams
+import openpose_tpu.scenes as jscenes
+from openpose_tpu.face import detector as jface
+from openpose_tpu.hand import detector as jhand
+from openpose_tpu.io import json_io as jjson
+from openpose_tpu.models import caffe_proto as jproto
+from openpose_tpu.ops import assembly as jassembly
+from openpose_tpu.pose import scaler as jscaler
+import openpose_tpu_torch.params as params
+from openpose_tpu_torch import synthetic
+from openpose_tpu_torch.face import detector as face
+from openpose_tpu_torch.hand import detector as hand
+from openpose_tpu_torch.io import json_io
+from openpose_tpu_torch.models import caffe_proto
+from openpose_tpu_torch.ops import assembly
+from openpose_tpu_torch.pose import scaler
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "openpose_tpu_torch"
+JAX_NAME = re.compile(r"openpose_tpu(?!_torch)\b")
+# the one place a string may name a file of the JAX package: the labels of
+# chip_smoke.py's kernel summary ("replaces": file:line of the TPU kernel)
+ALLOWED_STRING = re.compile(r"openpose_tpu/ops/paf_pallas\.py:\d+")
+
+
+def test_every_module_imports_with_jax_and_the_jax_package_blocked():
+    """A fresh interpreter in which any import of `openpose_tpu` or `jax`
+    raises imports every module of the port (walking the package) and
+    `chip_smoke.py`."""
+    script = textwrap.dedent("""
+        import importlib, importlib.abc, pkgutil, sys
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("openpose_tpu", "jax", "jaxlib"):
+                    raise ImportError(f"blocked import of {name}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import openpose_tpu_torch
+        names = ["openpose_tpu_torch", "chip_smoke"] + [
+            m.name for m in pkgutil.walk_packages(
+                openpose_tpu_torch.__path__, "openpose_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("openpose_tpu", "jax", "jaxlib")]
+        assert not loaded, loaded
+        print(len(names))
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert int(proc.stdout.strip()) >= 30
+
+
+def _docstrings(tree):
+    found = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) \
+                    and isinstance(body[0].value, ast.Constant) \
+                    and isinstance(body[0].value.value, str):
+                found.add(id(body[0].value))
+    return found
+
+
+def _python_sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _python_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_python_source_names_the_jax_package(path):
+    """No import of, and no string with a path into, `openpose_tpu` other
+    than in comments and docstrings."""
+    tree = ast.parse(path.read_text())
+    docstrings = _docstrings(tree)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                assert not JAX_NAME.match(alias.name), (path, alias.name)
+                assert alias.name.split(".")[0] != "jax", (path, alias.name)
+        elif isinstance(node, ast.ImportFrom):
+            module = node.module or ""
+            assert not JAX_NAME.match(module), (path, module)
+            assert module.split(".")[0] != "jax", (path, module)
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docstrings:
+            rest = ALLOWED_STRING.sub("", node.value)
+            assert not JAX_NAME.search(rest), (path, node.lineno, node.value)
+
+
+def test_no_kernel_source_names_the_jax_package_outside_comments():
+    sources = sorted(PORT.rglob("*.cu")) + sorted(PORT.rglob("*.cuh"))
+    assert sources
+    for path in sources:
+        for number, line in enumerate(path.read_text().splitlines(), 1):
+            code = line.split("//")[0]
+            assert not JAX_NAME.search(code), (path, number, line)
+
+
+@pytest.mark.parametrize("model", list(params.PoseModel),
+                         ids=lambda m: m.name)
+def test_pose_model_tables_equal(model):
+    jmodel = jparams.PoseModel[model.name]
+    assert model.value == jmodel.value
+    assert model.experimental == jmodel.experimental
+    if model.experimental:
+        assert model not in params.POSE_MODEL_INFO
+        return
+    got = dataclasses.asdict(params.POSE_MODEL_INFO[model])
+    want = dataclasses.asdict(jparams.POSE_MODEL_INFO[jmodel])
+    assert got == want
+    for flag in (False, True):
+        assert dataclasses.asdict(params.default_connect_params(model, flag)) \
+            == dataclasses.asdict(jparams.default_connect_params(jmodel, flag))
+
+
+def test_params_constants_equal():
+    for name in ("POSE_MAX_PEOPLE", "FACE_NUMBER_PARTS", "HAND_NUMBER_PARTS"):
+        assert getattr(params, name) == getattr(jparams, name)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("maximize_positives", [False, True])
+def test_connect_body_parts_equal(seed, maximize_positives):
+    """Greedy assembly on seeded pair scores and peaks of BODY_25."""
+    info = params.POSE_MODEL_INFO[params.PoseModel.BODY_25]
+    pairs = np.asarray(info.pairs, np.int32).reshape(-1, 2)
+    rng = np.random.RandomState(seed)
+    k = 6
+    peaks = np.zeros((info.num_parts, k + 1, 3), np.float32)
+    for part in range(info.num_parts):
+        cnt = rng.randint(0, k + 1)
+        peaks[part, 0, 0] = cnt
+        peaks[part, 1:cnt + 1, :2] = rng.uniform(0, 200, (cnt, 2))
+        peaks[part, 1:cnt + 1, 2] = rng.uniform(0.1, 1.0, cnt)
+    scores = np.where(rng.rand(len(pairs), k, k) < 0.4,
+                      rng.uniform(0.05, 1.0, (len(pairs), k, k)),
+                      -1.0).astype(np.float32)
+    args = (scores, peaks, pairs, info.num_parts, 3, 0.4, 1.5,
+            maximize_positives)
+    got = assembly.connect_body_parts(*args)
+    want = jassembly.connect_body_parts(*args)
+    assert got[0].shape[0] > 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("in_wh,net_wh,number,gap", [
+    ((80, 64), (80, 64), 1, 0.25), ((80, 64), (-1, 64), 1, 0.25),
+    ((200, 120), (160, 96), 4, 0.25), ((1280, 720), (-1, 368), 1, 0.25),
+    ((1920, 1080), (1312, 736), 4, 0.25), ((160, 48), (-1, 64), 2, 0.3),
+])
+def test_scale_plans_equal(in_wh, net_wh, number, gap):
+    got = scaler.extract_scales(in_wh, net_wh, number, gap)
+    want = jscaler.extract_scales(in_wh, net_wh, number, gap)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert scaler.resize_get_scale_factor(in_wh, got.net_input_sizes[0]) \
+        == jscaler.resize_get_scale_factor(in_wh, want.net_input_sizes[0])
+    dyn = scaler.extract_scales(in_wh, (-1, 64), 1, gap,
+                                net_resolution_dynamic=1.0)
+    jdyn = jscaler.extract_scales(in_wh, (-1, 64), 1, gap,
+                                  net_resolution_dynamic=1.0)
+    assert dataclasses.asdict(dyn) == dataclasses.asdict(jdyn)
+
+
+PROTOTXT = """
+name: "small"
+input: "image"
+input_dim: 1
+input_dim: 3
+input_dim: 16
+input_dim: 16
+layer { name: "conv1" type: "Convolution" bottom: "image" top: "conv1"
+  convolution_param { num_output: 4 kernel_size: 3 pad: 1 } }
+layer { name: "relu1" type: "ReLU" bottom: "conv1" top: "conv1" }
+layer { name: "pool1" type: "Pooling" bottom: "conv1" top: "pool1"
+  pooling_param { pool: MAX kernel_size: 2 stride: 2 } }
+layer { name: "conv2" type: "Convolution" bottom: "pool1" top: "net_output"
+  convolution_param { num_output: 2 kernel_size: 1 } }
+"""
+
+
+def test_caffe_proto_round_trip_equal():
+    """A small net's prototxt and caffemodel through both parsers."""
+    got = caffe_proto.parse_prototxt(PROTOTXT)
+    want = jproto.parse_prototxt(PROTOTXT)
+    assert got.to_json() == want.to_json()
+    assert caffe_proto.NetSpec.from_json(got.to_json()).to_json() \
+        == got.to_json()
+    rng = np.random.RandomState(0)
+    layers = {"conv1": [rng.randn(4, 3, 3, 3).astype(np.float32),
+                        rng.randn(4).astype(np.float32)],
+              "conv2": [rng.randn(2, 4, 1, 1).astype(np.float32),
+                        rng.randn(2).astype(np.float32)]}
+    blob = caffe_proto.serialize_caffemodel(layers)
+    assert blob == jproto.serialize_caffemodel(layers)
+    got_blobs = caffe_proto.parse_caffemodel(blob)
+    want_blobs = jproto.parse_caffemodel(blob)
+    assert got_blobs.keys() == want_blobs.keys() == layers.keys()
+    for name, arrays in layers.items():
+        for g, w, a in zip(got_blobs[name], want_blobs[name], arrays):
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(g, a)
+
+
+@pytest.mark.parametrize("name", ["body_25", "coco_18", "mpi_15", "mpi_15_4",
+                                  "face_70", "hand_21"])
+def test_spec_files_equal(name):
+    """The six spec JSONs, parsed, equal the JAX package's."""
+    mine = json.loads((PORT / "models" / "specs" / f"{name}.json").read_text())
+    theirs = json.loads((ROOT / "openpose_tpu" / "models" / "specs"
+                         / f"{name}.json").read_text())
+    assert mine == theirs
+    assert caffe_proto.NetSpec.from_json(mine).to_json() \
+        == jproto.NetSpec.from_json(theirs).to_json()
+
+
+def _seeded_people(seed, n_people=3, hw=(368, 656)):
+    return jscenes.random_people(np.random.RandomState(seed), n_people, hw)
+
+
+def test_people_json_equal():
+    people = _seeded_people(4)
+    rng = np.random.RandomState(4)
+    kwargs = dict(pose_keypoints=people,
+                  face_keypoints=rng.rand(3, 70, 3).astype(np.float32),
+                  hand_left_keypoints=rng.rand(3, 21, 3).astype(np.float32),
+                  hand_right_keypoints=rng.rand(3, 21, 3).astype(np.float32))
+    assert json_io.people_json(**kwargs) == jjson.people_json(**kwargs)
+    assert json_io.people_json(pose_keypoints=people[:0]) \
+        == jjson.people_json(pose_keypoints=people[:0])
+    assert json_io.image_id_from_name("COCO_val2014_000000000192.jpg") \
+        == jjson.image_id_from_name("COCO_val2014_000000000192.jpg")
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_face_and_hand_rectangles_equal(seed):
+    people = _seeded_people(seed)
+    people[1, 17, 2] = 0.0        # a profile view: one ear unseen
+    people[2, 4, 2] = 0.0         # a missing wrist
+    assert face.detect_faces(people, params.PoseModel.BODY_25) \
+        == jface.detect_faces(people, jparams.PoseModel.BODY_25)
+    assert hand.detect_hands(people, params.PoseModel.BODY_25) \
+        == jhand.detect_hands(people, jparams.PoseModel.BODY_25)
+    mpi = people[:, :15]
+    assert face.detect_faces(mpi, params.PoseModel.MPI_15) \
+        == jface.detect_faces(mpi, jparams.PoseModel.MPI_15)
+
+
+def test_synthetic_scene_helpers_equal():
+    """`synthetic.random_people` and its drawing pairs are the port's copy
+    of the JAX package's scene helpers: same numbers from the same seed."""
+    assert synthetic.BODY25_DRAW_PAIRS == jscenes.BODY25_DRAW_PAIRS
+    np.testing.assert_array_equal(synthetic.BODY25_TEMPLATE,
+                                  jscenes.BODY25_TEMPLATE)
+    for seed, n, hw in ((0, 3, (368, 656)), (7, 5, (720, 1280))):
+        got = synthetic.random_people(np.random.RandomState(seed), n, hw,
+                                      height_range=(0.4 * hw[0], 0.8 * hw[0]))
+        want = jscenes.random_people(np.random.RandomState(seed), n, hw,
+                                     height_range=(0.4 * hw[0], 0.8 * hw[0]))
+        np.testing.assert_array_equal(got, want)
