@@ -37,7 +37,19 @@ with a non-zero exit when it fails:
    hand crops around them;
 8. injection: a synthetic BODY_25 net output with known people goes
    through `PoseExtractor.forward(net_output=...)` and must assemble exactly
-   those people, written out as people JSON.
+   those people, written out as people JSON;
+9. wrapper: a `Wrapper` (BODY_25 + face + hand, 4 people kept, bf16) on
+   720x1280 frames: plain `process`, with top-down refinement, with
+   `tracking=1` over 8 frames of one scene moved by a known shift (the LK
+   frames must carry the kept keypoints by that shift), and with injected
+   people; per-stage times, CNN frames against LK frames, LK's launches
+   and device-busy share, and LK on the card against LK on the CPU;
+10. runner: `VideoRunner`'s batch loop over batch-8 `PoseInference`, 6
+   batches of frames in memory, held to the sequential path on the same
+   frames; frames/s by assembly workers and batches in flight.
+
+The kernel phase also holds the fused kernel to its plain version at the
+refinement's shape (8 crops of 368x368, thresholds 0.02 and 0.01).
 
 `python3 chip_smoke.py --capped-trace` runs the people-capped call alone,
 timed and traced (to set two trees side by side on one card).
@@ -48,7 +60,7 @@ of its bytes (each input read once, each output written once) over the
 card's memory rate and its float operations (counted from this run's peak
 counts and line lengths) over the card's float32 rate.  The line before the
 last is the kernel summary, the last line {"ok": true, "device": {...}}.  Details go to build/chip_smoke/chip_smoke.json.
-About 3 minutes on one H100, the build included.
+About 4 minutes on one H100, the build included.
 """
 
 from __future__ import annotations
@@ -385,10 +397,68 @@ def kernel_phase(device, info, full_shape=(8, 46, 82, 127)):
         f"bound={json.dumps(bound4)} "
         f"share_of_bound={bound4['bound_ms'] / ms4}")
     assert err <= KERNEL_TOL, "four_scales"
+    refinement = refinement_kernel_cases(device, info, both, rng,
+                                         n=min(n, 8), k=k)
+    max_err = max(max_err, *(c["max_abs_err"] for c in refinement.values()))
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound": full_bound, "full_shape_mismatches": mismatches,
             "four_scales_ms": ms4, "four_scales_plain_ms": plain_ms4,
-            "four_scales_bound": bound4}
+            "four_scales_bound": bound4, "refinement": refinement}
+
+
+def refinement_kernel_cases(device, info, both, rng, n=8, k=127,
+                            crop_hw=(368, 368)):
+    """The fused kernel at the shape top-down refinement gives it
+    (`pose/refine.py`): n crops of 368x368 (46x46 maps), one scale, the
+    refinement's thresholds (NMS 0.02, line samples above 0.01), peaks
+    without the NMS offset.  `full`: every part at its whole budget, random
+    maps.  `realistic`: three placed people per crop rendered as the net's
+    output, peaks from `nms.nms(..., offset=(0, 0))` on its merged maps."""
+    import numpy as np
+    import torch
+    from openpose_tpu_torch import synthetic
+    from openpose_tpu_torch.ops import nms, paf, paf_cuda, resize
+    from openpose_tpu_torch.pose import refine
+    thr = (refine.INTER_THRESHOLD_REFINED, 0.95, refine.NMS_THRESHOLD_REFINED)
+    pairs, map_idx = paf.pair_tables(info)
+    th, tw = crop_hw
+    scenes = {}
+    src, peaks, hw = paf_scene(rng, [k] * info.num_parts, k, n,
+                               (th // 8, tw // 8), info.heatmap_channels)
+    assert hw == crop_hw
+    scenes["full"] = (src, peaks)
+    people = np.stack([synthetic.random_people(
+        rng, 3, crop_hw, height_range=(0.5 * th, 0.9 * th))
+        for _ in range(n)])
+    src = synthetic.make_targets(people, pairs, map_idx, crop_hw,
+                                 info.num_parts, info.heatmap_channels)
+    with torch.inference_mode():
+        merged = resize.upsample_merge(
+            [torch.from_numpy(src).to(device)[..., :info.num_parts]], [1.0],
+            crop_hw)
+        peaks = nms.nms(merged, thr[2], k, offset=(0.0, 0.0)).cpu().numpy()
+    scenes["realistic"] = (src, peaks)
+    out = {}
+    for name, (src, peaks) in scenes.items():
+        got, want, args = both([src], [1.0], crop_hw, peaks, pairs, map_idx,
+                               thr)
+        err = float((got - want).abs().max())
+        case = {"max_abs_err": err, "mismatches": int((got != want).sum()),
+                "accepted": int((want > 0).sum()),
+                "peaks_per_part_mean": float(peaks[:, :, 0, 0].mean()),
+                "ms": timed(lambda: paf_cuda.paf_scores_fused(*args), 3, 20,
+                            device),
+                "plain_ms": timed(
+                    lambda: paf.paf_scores_multiscale_reference(*args), 1, 2,
+                    device),
+                "bound": fused_bound(args[0], args[3], args[4], args[5])}
+        case["share_of_bound"] = case["bound"]["bound_ms"] / case["ms"]
+        log(f"kernel case refinement_{name} {tuple(got.shape)}, "
+            f"{src.shape[1]}x{src.shape[2]} maps, thresholds {thr}: "
+            f"tol={KERNEL_TOL} " + json.dumps(case))
+        assert err <= KERNEL_TOL, f"refinement_{name}"
+        out[name] = case
+    return out
 
 
 def sampler_phase(device, profile_shape=(8, 26, 403_225, 46, 82)):
@@ -877,6 +947,24 @@ def whole_body_phase(device, pose_model, batch=4, frame_hw=(720, 1280),
         f"cascade {total_ms} ms/batch = {out['fps']} f/s on the body's own "
         f"people per frame {out['body_people_per_frame']}")
 
+    # the fused kernel alone on the body stage's own tensors
+    nms_thr, inter_thr, inter_min = wb.body.thresholds
+    with torch.inference_mode():
+        sources = wb.body.net_outputs(frames)
+        peaks, _ = wb.body.decode(sources)
+        args = (sources, wb.body.plan.scale_input_to_net, net_hw, peaks,
+                wb.body.pairs, wb.body.map_idx, inter_thr, inter_min, nms_thr)
+        body_paf = {
+            "ms": timed(lambda: paf_cuda.paf_scores_fused(*args), 3, 20,
+                        device),
+            "bound": fused_bound(sources, peaks, wb.body.pairs,
+                                 wb.body.map_idx),
+            "peaks_per_part_mean": float(peaks[:, :, 0, 0].mean())}
+    body_paf["share_of_bound"] = body_paf["bound"]["bound_ms"] / body_paf["ms"]
+    out["body_paf_kernel"] = body_paf
+    log(f"fused kernel on the whole-body body stage's tensors (batch "
+        f"{batch}): " + json.dumps(body_paf))
+
     out["per_crop_check"] = per_crop_check(
         device, wb, face_model, hand_model, frames, placed_results)
     out["injection"] = whole_body_injection(
@@ -1065,6 +1153,317 @@ def injection_phase(device, model, frame_hw=(368, 656), n_people=3):
     return {"people": n_people, "max_keypoint_err_px": errs}
 
 
+def textured_frames(rng, count, frame_hw, people, shift=(3, 2)):
+    """`count` uint8 frames of one scene, each moved by `shift` (dx, dy)
+    whole pixels against the one before (rolled, so exact away from the
+    border): `people` drawn over a smooth random texture, so that every
+    patch has gradients for optical flow to hold on to."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from openpose_tpu_torch import synthetic
+    h, w = frame_hw
+    coarse = torch.from_numpy(rng.uniform(40, 200, (1, 3, h // 8 + 1,
+                                                    w // 8 + 1))
+                              .astype(np.float32))
+    texture = F.interpolate(coarse, size=(h, w), mode="bicubic",
+                            align_corners=True)[0].permute(1, 2, 0).numpy()
+    drawn = synthetic.render_scene_image(people, frame_hw, None)
+    scene = np.where(drawn.any(axis=-1, keepdims=True), drawn,
+                     np.clip(texture, 0, 255)).astype(np.uint8)
+    return [np.roll(scene, (shift[1] * i, shift[0] * i), axis=(0, 1))
+            for i in range(count)]
+
+
+def lk_cpu_check(device, frame_hw=(720, 1280)):
+    """`pyramidal_lk` on the card against the same call on the CPU: the
+    same frames and points.  Points within 1e-2 px; `valid` flags equal but
+    for a point whose patch or end lies within 1e-2 px of the frame's
+    bound, where a last-bit difference may decide."""
+    import numpy as np
+    from openpose_tpu_torch import synthetic
+    from openpose_tpu_torch.tracking import lk
+    rng = np.random.RandomState(21)
+    h, w = frame_hw
+    people = synthetic.random_people(rng, 4, frame_hw,
+                                     height_range=(0.4 * h, 0.8 * h))
+    prev, nxt = (f.astype(np.float32).mean(axis=-1)
+                 for f in textured_frames(rng, 2, frame_hw, people))
+    pts = np.concatenate([
+        people[..., :2].reshape(-1, 2),
+        # patches that leave the frame, a point outside it, the last pixel
+        [[4.0, 100.0], [w - 5.0, h / 2], [w + 50.0, 20.0], [w - 1.0, h - 1.0],
+         [10.0, 10.0], [w / 2, h - 10.5]]]).astype(np.float32)
+    got_pts, got_valid = (t.cpu().numpy() for t in
+                          lk.pyramidal_lk(prev, nxt, pts, device=device))
+    want_pts, want_valid = (t.numpy() for t in
+                            lk.pyramidal_lk(prev, nxt, pts, device="cpu"))
+    err = float(np.abs(got_pts - want_pts)[want_valid].max())
+    half = 10.0
+    margin = np.minimum.reduce([
+        np.abs(pts[:, 0] - half), np.abs(w - pts[:, 0] - half),
+        np.abs(pts[:, 1] - half), np.abs(h - pts[:, 1] - half),
+        np.abs(want_pts[:, 0]), np.abs(w - want_pts[:, 0]),
+        np.abs(want_pts[:, 1]), np.abs(h - want_pts[:, 1])])
+    differ = got_valid != want_valid
+    log(f"LK card vs CPU at {frame_hw}: {len(pts)} points, "
+        f"{int(want_valid.sum())} valid, max_abs_err={err} px tol=1e-2; "
+        f"valid flags differ on {int(differ.sum())}")
+    assert err <= 1e-2
+    assert (margin[differ] <= 1e-2).all(), pts[differ]
+    assert want_valid[:100].sum() >= 80 and not want_valid[100:104].any()
+    return {"points": len(pts), "valid": int(want_valid.sum()),
+            "max_abs_err_px": err, "valid_flags_differ": int(differ.sum())}
+
+
+def wrapper_phase(device, frame_hw=(720, 1280), net_size=368, n_people=4,
+                  track_frames=8, shift=(3, 2), compute_dtype="bfloat16",
+                  net_resolution=(-1, 368), injection_hw=(368, 656)):
+    """The port's `Wrapper` on the card: BODY_25 + face + hand, the best
+    `n_people` kept, `tracking=1` (so even datum ids are CNN frames).
+    (a) plain `process`; (b) with top-down refinement, on the net's own
+    people and on injected ones; (c) `tracking=1` over `track_frames`
+    frames of one scene moved by `shift` px a frame: on the LK frames the
+    kept keypoints must have moved by that shift; (d) placed people
+    injected as the body net's output must come back, with face and hand
+    crops around them."""
+    import numpy as np
+    import torch
+    from openpose_tpu_torch import synthetic
+    from openpose_tpu_torch.ops import paf, paf_cuda
+    from openpose_tpu_torch.tracking import lk
+    from openpose_tpu_torch.utils.profiler import Profiler
+    from openpose_tpu_torch.wrapper import (
+        FaceConfig, HandConfig, PoseConfig, Wrapper)
+
+    wrapper = Wrapper(
+        PoseConfig(net_resolution=net_resolution, compute_dtype=compute_dtype,
+                   number_people_max=n_people, tracking=1),
+        FaceConfig(enable=True, net_resolution=net_size),
+        HandConfig(enable=True, net_resolution=net_size), device=device)
+    assert wrapper.pose_extractor.device == device
+    rng = np.random.RandomState(31)
+    frames = scene_frames(rng, 4, frame_hw)
+    out = {}
+
+    def run(tag, images, **kwargs):
+        """`process` on each image as a CNN frame: per-stage ms from a
+        fresh Profiler and the datums, after a warm-up pass over the same
+        images (a frame with another number of face or hand crops is a new
+        batch shape, for which cuDNN's benchmark mode first tries its
+        algorithms)."""
+        for image in images:
+            wrapper.process(image, datum_id=0, **kwargs)
+        wrapper.profiler = Profiler()
+        datums = [wrapper.process(image, datum_id=0, **kwargs)
+                  for image in images]
+        stages = wrapper.profiler.averages_ms()
+        wrapper.profiler = None
+        for d in datums:
+            kp = d.pose_keypoints
+            assert kp.ndim == 3 and kp.shape[1:] == (25, 3)
+            assert kp.shape[0] <= n_people and np.isfinite(kp).all()
+            assert d.pose_scores.shape == (kp.shape[0],)
+            if kp.shape[0]:
+                assert d.face_keypoints.shape == (kp.shape[0], 70, 3)
+                assert d.hand_left_keypoints.shape == (kp.shape[0], 21, 3)
+                assert d.hand_right_keypoints.shape == (kp.shape[0], 21, 3)
+                assert np.isfinite(d.face_keypoints).all()
+                assert np.isfinite(d.hand_left_keypoints).all()
+        out[f"{tag}_stage_ms"] = stages
+        out[f"{tag}_people"] = [int(d.pose_keypoints.shape[0])
+                                for d in datums]
+        log(f"wrapper {tag}: per-stage ms {json.dumps(stages)}; people kept "
+            f"per frame {out[f'{tag}_people']}")
+        return datums
+
+    reset_launches()
+    # (a) plain
+    run("plain", frames)
+    out["plain_launches_per_frame"] = launches_per_call(
+        "wrapper plain, one frame",
+        lambda: wrapper.process(frames[0], datum_id=0))
+
+    # (d) placed people through pose_net_output (a frame of the net's size)
+    info = wrapper.pose_extractor.info
+    placed = synthetic.random_people(rng, 3, injection_hw)
+    pairs, map_idx = paf.pair_tables(info)
+    net_output = synthetic.make_targets(
+        placed[None], pairs, map_idx, injection_hw, info.num_parts,
+        info.heatmap_channels)[0]
+    placed_frame = synthetic.render_scene_image(placed, injection_hw, rng)
+    datum = run("injected", [placed_frame], pose_net_output=net_output)[0]
+    found = datum.pose_keypoints
+    assert found.shape[0] == len(placed), f"{found.shape[0]} people"
+    errs = [float(np.abs(found[:, :, :2] - person[None, :, :2])
+                  .max(axis=(1, 2)).min()) for person in placed]
+    assert max(errs) <= 8.0, errs
+    for p in range(len(placed)):
+        face = datum.face_rectangles[p]
+        nose = found[p, 0, :2]             # BODY_25 part 0
+        assert face[0] <= nose[0] <= face[0] + face[2] \
+            and face[1] <= nose[1] <= face[1] + face[3], "face crop"
+        assert (datum.face_keypoints[p, :, 2] != 0).any()
+        assert (datum.hand_left_keypoints[p, :, 2] != 0).any()
+    out["injected_max_keypoint_err_px"] = max(errs)
+    log(f"wrapper injected: placed {len(placed)} people, recovered all; max "
+        f"keypoint error {max(errs)} px")
+
+    # (b) top-down refinement: on the net's own people, and on the placed
+    # ones (small enough that each gets a crop)
+    wrapper.pose_cfg.top_down_refinement = True
+    try:
+        run("refined", frames)
+        out["refined_launches_per_frame"] = launches_per_call(
+            "wrapper refined, one frame",
+            lambda: wrapper.process(frames[0], datum_id=0))
+        run("refined_injected", [placed_frame], pose_net_output=net_output)
+        out["refined_injected_launches_per_frame"] = launches_per_call(
+            "wrapper refined, placed people",
+            lambda: wrapper.process(placed_frame, datum_id=0,
+                                    pose_net_output=net_output))
+    finally:
+        wrapper.pose_cfg.top_down_refinement = False
+    assert out["refined_injected_launches_per_frame"]["paf_scores_fused"] \
+        > out["plain_launches_per_frame"]["paf_scores_fused"], \
+        "refinement did not launch the fused kernel on its crops"
+    out["refinement_ms"] = out["refined_stage_ms"]["pose"] \
+        - out["plain_stage_ms"]["pose"]
+    log(f"wrapper refinement: pose stage {out['refined_stage_ms']['pose']} ms "
+        f"against {out['plain_stage_ms']['pose']} ms plain")
+
+    # (c) tracking=1 over one moving scene
+    h, w = frame_hw
+    people = synthetic.random_people(rng, 3, frame_hw,
+                                     height_range=(0.4 * h, 0.7 * h))
+    moving = textured_frames(rng, track_frames, frame_hw, people, shift)
+    wrapper.process(moving[0], datum_id=0)          # warm both kinds of frame
+    wrapper.process(moving[1], datum_id=1)
+    times, pose_times, datums = {0: [], 1: []}, {0: [], 1: []}, []
+    for i, frame in enumerate(moving):
+        wrapper.profiler = Profiler()
+        t0 = time.perf_counter()
+        datums.append(wrapper.process(frame, datum_id=i))
+        times[i % 2].append((time.perf_counter() - t0) * 1e3)
+        pose_times[i % 2].append(wrapper.profiler.averages_ms()["pose"])
+    wrapper.profiler = None
+    moved_err, moved = [], 0
+    for i in range(1, track_frames, 2):
+        cnn, tracked = datums[i - 1], datums[i]
+        assert tracked.pose_keypoints.shape == cnn.pose_keypoints.shape
+        np.testing.assert_array_equal(tracked.pose_scores, cnn.pose_scores)
+        # keypoints LK moved: confident, and still so after the frame
+        keep = (cnn.pose_keypoints[..., 2] > 0.05) \
+            & (tracked.pose_keypoints[..., 2] > 0.05)
+        flow = (tracked.pose_keypoints - cnn.pose_keypoints)[keep][:, :2]
+        moved += int(keep.sum())
+        moved_err += np.abs(flow - np.asarray(shift, np.float32)) \
+            .max(axis=1).tolist()
+    assert moved >= 10, "LK moved too few keypoints to judge"
+    within = float(np.mean(np.asarray(moved_err) <= 0.5))
+    out["tracking"] = {
+        "cnn_frame_ms": float(np.mean(times[0])),
+        "lk_frame_ms": float(np.mean(times[1])),
+        "cnn_frame_pose_stage_ms": float(np.mean(pose_times[0])),
+        "lk_frame_pose_stage_ms": float(np.mean(pose_times[1])),
+        "keypoints_moved": moved, "shift_px": list(shift),
+        "median_err_px": float(np.median(moved_err)),
+        "share_within_half_px": within}
+    log(f"wrapper tracking=1 over {track_frames} frames moved by {shift} px: "
+        + json.dumps(out["tracking"]))
+    assert np.median(moved_err) <= 0.5 and within >= 0.9, out["tracking"]
+
+    # LK alone, as the tracker calls it: all kept people's keypoints
+    tracker = wrapper._pose_tracker
+    gray0 = tracker.prev_gray
+    gray1 = gray0.roll((shift[1], shift[0]), dims=(0, 1))
+    pts = tracker.keypoints[..., :2].reshape(-1, 2)
+    call = lambda: [t.cpu() for t in lk.pyramidal_lk(gray0, gray1, pts,
+                                                     device=device)]
+    out["lk_call"] = {"points": int(pts.shape[0]), "ms": host_ms(call, 10)}
+    if device.type == "cuda":
+        out["lk_call"]["trace"] = device_busy(call, 5)
+    log(f"LK call on the tracker's {pts.shape[0]} points at {frame_hw}: "
+        + json.dumps(out["lk_call"]))
+    out["lk_cpu_check"] = lk_cpu_check(device, frame_hw)
+    out["launches"] = read_launches("wrapper path", paf_cuda.paf_scores_fused)
+    return out
+
+
+def runner_phase(device, model, batch=8, net_hw=(368, 656), n_batches=6):
+    """`VideoRunner`'s batch loop over batch-`batch` `PoseInference`, fed
+    frames in memory: every frame's result, in order, equal to the
+    sequential `inference(batch)` -> `fetch` -> `assemble` of the same
+    frames (the same device work on the same inputs: 1e-4 px and 1e-4 in
+    score allowed); frames/s by assembly workers and batches in flight
+    beside the sequential figure, and the card's busy share of the wall
+    time."""
+    import numpy as np
+    from openpose_tpu_torch.ops import paf_cuda
+    from openpose_tpu_torch.parallel.inference import PoseInference
+    from openpose_tpu_torch.runtime.video_runner import VideoRunner
+
+    rng = np.random.RandomState(41)
+    frames = scene_frames(rng, batch * n_batches, net_hw)
+    inference = PoseInference(model, net_hw=net_hw, device=device)
+    scales = np.ones((batch,), np.float64)
+
+    def batches():
+        for i in range(0, len(frames), batch):
+            yield frames[i:i + batch], scales, batch
+
+    def sequential():
+        results = []
+        for images, _, real in batches():
+            pk, sc = inference.fetch(*inference(images))
+            results += [inference.assemble(pk[b], sc[b]) for b in range(real)]
+        return results
+
+    reset_launches()
+    sequential()                                           # warm-up
+    t0 = time.perf_counter()
+    want = sequential()
+    seq_s = time.perf_counter() - t0
+    out = {"frames": len(frames), "batch": batch,
+           "sequential_fps": len(frames) / seq_s,
+           "people_per_frame_mean": float(np.mean([len(kp)
+                                                   for kp, _ in want]))}
+    log(f"runner: sequential {len(frames)} frames at {net_hw}, batch {batch}: "
+        f"{out['sequential_fps']} f/s, {out['people_per_frame_mean']} people "
+        f"per frame")
+    runs = {}
+    for workers, in_flight in ((1, 2), (4, 2), (1, 4), (4, 4)):
+        runner = VideoRunner(inference, batch_size=batch,
+                             assembly_workers=workers,
+                             max_in_flight=in_flight)
+        t0 = time.perf_counter()
+        got = list(runner._run_batches(batches(), lambda i: net_hw[::-1]))
+        seconds = time.perf_counter() - t0
+        assert [r.index for r in got] == list(range(len(frames)))
+        diff = 0.0
+        for res, (kp, person_scores) in zip(got, want):
+            assert res.keypoints.shape == kp.shape, (res.index, kp.shape)
+            if kp.size:
+                diff = max(diff, float(np.abs(res.keypoints - kp).max()),
+                           float(np.abs(res.scores - person_scores).max()))
+        assert diff <= 1e-4, diff
+        runs[f"workers{workers}_inflight{in_flight}"] = {
+            "fps": len(frames) / seconds, "max_abs_diff": diff}
+    out["runs"] = runs
+    log("runner: frames/s by assembly workers and batches in flight: "
+        + json.dumps(runs))
+    if device.type == "cuda":
+        runner = VideoRunner(inference, batch_size=batch, assembly_workers=4,
+                             max_in_flight=4)
+        out["trace_workers4_inflight4"] = trace = device_busy(
+            lambda: list(runner._run_batches(batches(),
+                                             lambda i: net_hw[::-1])), 1)
+        log(f"trace, runner with 4 workers and 4 in flight, "
+            f"{len(frames)} frames per call: {json.dumps(trace)}")
+    out["launches"] = read_launches("runner path", paf_cuda.paf_scores_fused)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1102,6 +1501,8 @@ def main() -> int:
     report["people_capped"] = people_capped_phase(device, model)
     report["whole_body"] = whole_body_phase(device, model)
     report["injection"] = injection_phase(device, model)
+    report["wrapper"] = wrapper_phase(device)
+    report["runner"] = runner_phase(device, model)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -1114,8 +1515,9 @@ def main() -> int:
     log(json.dumps({"kernels": [{
         "name": "paf_score_kernel", "route": "cuda", "source": source,
         "replaces": "openpose_tpu/ops/paf_pallas.py:286",
-        "launches": report["main_path"]["launches"]["paf_scores_fused"]
-        + report["whole_body"]["launches"]["paf_scores_fused"],
+        "launches": sum(report[phase]["launches"]["paf_scores_fused"]
+                        for phase in ("main_path", "whole_body", "wrapper",
+                                      "runner")),
         "max_abs_err": max(kernel["max_abs_err"], report["main_path"][
             "breakdown"]["paf_main_path_max_abs_err"]),
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],

@@ -1,7 +1,8 @@
 """The port's device rule: the card, unless the caller names another device.
 
-Every entry point (the `zoo` loaders, `PoseExtractor`, `PoseInference`,
-`TopDownInference`, `WholeBodyInference`, the face and hand extractors)
+Every entry point (the `zoo` loaders, `Wrapper`, `PoseExtractor`,
+`PoseInference`, `TopDownInference`, `WholeBodyInference`, the face and hand
+extractors, `tracking.lk.pyramidal_lk` and the trackers over it)
 resolves its `device` argument here.  Given none it asks for `"cuda"` and
 raises `NoCudaDeviceError` where there is no card: nothing carries on on the
 CPU on its own.  Tests and CPU users pass `device="cpu"`.

@@ -46,12 +46,43 @@ def from_params(spec: caffe_proto.NetSpec, params: graph.Params,
         device_rule.resolve(device)), info=info)
 
 
+# Conventional model-folder layout of the reference (getPoseTrainedModel /
+# getFaceModel etc., src/openpose/pose/poseParameters.cpp:394-408): relative
+# caffemodel paths under `--model_folder`.
+CAFFEMODEL_PATHS = {
+    PoseModel.BODY_25: "pose/body_25/pose_iter_584000.caffemodel",
+    PoseModel.COCO_18: "pose/coco/pose_iter_440000.caffemodel",
+    PoseModel.MPI_15: "pose/mpi/pose_iter_160000.caffemodel",
+    PoseModel.MPI_15_4: "pose/mpi/pose_iter_160000.caffemodel",
+}
+FACE_CAFFEMODEL_PATH = "face/pose_iter_116000.caffemodel"
+HAND_CAFFEMODEL_PATH = "hand/pose_iter_102000.caffemodel"
+
+
+def resolve_caffemodel(caffemodel: Optional[str],
+                       model_folder: Optional[str],
+                       relative: str) -> Optional[str]:
+    """Explicit `--caffemodel_path` wins; else look in the conventional
+    `--model_folder` layout; else None (random init)."""
+    if caffemodel:
+        return caffemodel
+    if model_folder:
+        candidate = pathlib.Path(model_folder) / relative
+        if candidate.exists():
+            return str(candidate)
+    return None
+
+
 def _load(spec_name: str, seed: int,
           device: Union[str, torch.device, None],
           caffemodel: Optional[str],
-          info: Optional[PoseModelInfo] = None) -> Model:
+          info: Optional[PoseModelInfo] = None,
+          prototxt: Optional[str] = None) -> Model:
     device = device_rule.resolve(device)     # before any weights are made
-    spec = graph.load_spec(spec_name)
+    if prototxt is not None:
+        spec = caffe_proto.parse_prototxt(pathlib.Path(prototxt).read_text())
+    else:
+        spec = graph.load_spec(spec_name)
     if caffemodel is not None:
         blobs = caffe_proto.parse_caffemodel(
             pathlib.Path(caffemodel).read_bytes())
@@ -63,25 +94,35 @@ def _load(spec_name: str, seed: int,
 
 def load_pose_model(model: PoseModel = PoseModel.BODY_25, seed: int = 0,
                     device: Union[str, torch.device, None] = None,
-                    caffemodel: Optional[str] = None) -> Model:
+                    caffemodel: Optional[str] = None,
+                    model_folder: Optional[str] = None,
+                    prototxt: Optional[str] = None) -> Model:
     """He-normal weights from `torch.Generator().manual_seed(seed)`, or the
-    weights of a Caffe `.caffemodel` when one is given.  On the card unless
-    `device` says otherwise, as every loader here."""
+    weights of a Caffe `.caffemodel` when one is given or found under
+    `model_folder` (`resolve_caffemodel`); prototxt: a deploy prototxt that
+    replaces the bundled topology.  On the card unless `device` says
+    otherwise, as every loader here."""
     if model.experimental:
         raise ValueError(f"PoseModel.{model.name} has no bundled topology")
     info = POSE_MODEL_INFO[model]
-    return _load(info.spec, seed, device, caffemodel, info)
+    caffemodel = resolve_caffemodel(caffemodel, model_folder,
+                                    CAFFEMODEL_PATHS.get(model, ""))
+    return _load(info.spec, seed, device, caffemodel, info, prototxt)
 
 
 def load_face_model(seed: int = 1,
                     device: Union[str, torch.device, None] = None,
-                    caffemodel: Optional[str] = None) -> Model:
+                    caffemodel: Optional[str] = None,
+                    model_folder: Optional[str] = None) -> Model:
     """The 70-keypoint face net (`face_70.json`); the JAX package's seed."""
-    return _load("face_70", seed, device, caffemodel)
+    return _load("face_70", seed, device, resolve_caffemodel(
+        caffemodel, model_folder, FACE_CAFFEMODEL_PATH))
 
 
 def load_hand_model(seed: int = 2,
                     device: Union[str, torch.device, None] = None,
-                    caffemodel: Optional[str] = None) -> Model:
+                    caffemodel: Optional[str] = None,
+                    model_folder: Optional[str] = None) -> Model:
     """The 21-keypoint hand net (`hand_21.json`); the JAX package's seed."""
-    return _load("hand_21", seed, device, caffemodel)
+    return _load("hand_21", seed, device, resolve_caffemodel(
+        caffemodel, model_folder, HAND_CAFFEMODEL_PATH))

@@ -202,15 +202,20 @@ class PoseInference:
                 return peaks, scores[:, :, :k, :k].cpu().numpy()
         return peaks, scores.cpu().numpy()
 
-    def assemble(self, peaks: np.ndarray, scores: np.ndarray
+    def assemble(self, peaks: np.ndarray, scores: np.ndarray,
+                 scale_net_to_output: Optional[float] = None
                  ) -> Tuple[np.ndarray, np.ndarray]:
         """Host tail for one fetched frame: peaks [parts, K+1, 3] and scores
         [P, k, k] -> (keypoints [people, parts, 3] in input pixels, person
-        scores [people])."""
+        scores [people]).  scale_net_to_output: the frame's own net-to-source
+        scale where the frames were resized to the net input before they
+        came here (`runtime/video_runner.py`); the plan's when None."""
         cp = self.connect
+        if scale_net_to_output is None:
+            scale_net_to_output = self.scale_net_to_output
         return assembly.connect_body_parts(
             scores, peaks, self._pairs_np, self.num_parts, cp.min_subset_cnt,
-            cp.min_subset_score, self.scale_net_to_output)
+            cp.min_subset_score, scale_net_to_output)
 
 
 class TopDownInference:

@@ -87,20 +87,27 @@ class PoseExtractor:
 
     @torch.inference_mode()
     def decode(self, sources: List[torch.Tensor], plan: scaler.ScalePlan,
-               nms_offset: float):
-        """Per-scale net outputs -> (peaks [1, parts, K+1, 3], scores
-        [1, P, K, K])."""
+               nms_offset: float, nms_threshold: Optional[float] = None,
+               inter_threshold: Optional[float] = None):
+        """Per-scale net outputs [N, h_s, w_s, C] -> (peaks
+        [N, parts, K+1, 3], scores [N, P, K, K]).  The thresholds default
+        to the model's (`self.connect`); top-down refinement
+        (`pose/refine.py`) decodes its crops with lower ones."""
         target_w, target_h = plan.net_input_sizes[0]
         merged_parts = resize.upsample_merge(
             [s[..., :self.info.num_parts] for s in sources],
             list(plan.scale_input_to_net), (target_h, target_w))
         cp = self.connect
-        peaks = nms.nms(merged_parts, cp.nms_threshold, self.max_peaks,
+        if nms_threshold is None:
+            nms_threshold = cp.nms_threshold
+        if inter_threshold is None:
+            inter_threshold = cp.inter_threshold
+        peaks = nms.nms(merged_parts, nms_threshold, self.max_peaks,
                         offset=(nms_offset, nms_offset))
         scores = paf.paf_scores_multiscale(
             sources, plan.scale_input_to_net, (target_h, target_w), peaks,
-            self._pairs_dev, self._map_idx_dev, cp.inter_threshold,
-            cp.inter_min_above_threshold, cp.nms_threshold)
+            self._pairs_dev, self._map_idx_dev, inter_threshold,
+            cp.inter_min_above_threshold, nms_threshold)
         return peaks, scores
 
     def run_device(self, image: torch.Tensor, plan: scaler.ScalePlan,

@@ -17,7 +17,10 @@ from openpose_tpu_torch.parallel.inference import (
 from openpose_tpu_torch.params import PoseModel
 from openpose_tpu_torch.pose.extractor import PoseExtractor
 from openpose_tpu_torch.runtime.topdown import TopDownExtractor
+from openpose_tpu_torch.runtime.video_runner import VideoRunner
 from openpose_tpu_torch.runtime.whole_body import WholeBodyInference
+from openpose_tpu_torch.tracking import lk, person_id, pose_graph, tracker
+from openpose_tpu_torch.wrapper import HandConfig, PoseConfig, Wrapper
 
 
 @pytest.fixture(scope="module")
@@ -55,6 +58,19 @@ ENTRY_POINTS = {
         pose, None, hand, frame_hw=(96, 128), net_hw=(64, 80)),
     "FaceExtractor": lambda pose, hand: FaceExtractor(hand, 64),
     "HandExtractor": lambda pose, hand: HandExtractor(hand, 64),
+    "Wrapper": lambda pose, hand: Wrapper(),
+    "Wrapper_hand_only": lambda pose, hand: Wrapper(
+        PoseConfig(enable=False), hand=HandConfig(enable=True)),
+    "VideoRunner": lambda pose, hand: VideoRunner(
+        PoseInference(pose, net_hw=(64, 80))),
+    "pyramidal_lk": lambda pose, hand: lk.pyramidal_lk(
+        np.zeros((40, 40), np.float32), np.zeros((40, 40), np.float32),
+        np.zeros((1, 2), np.float32)),
+    "PersonTracker": lambda pose, hand: tracker.PersonTracker(),
+    "PersonIdExtractor": lambda pose, hand: person_id.PersonIdExtractor(),
+    "KeyframeSmoother": lambda pose, hand: pose_graph.KeyframeSmoother(),
+    "smooth_window": lambda pose, hand: pose_graph.smooth_window(
+        np.zeros((3, 1, 2, 3), np.float32)),
 }
 
 
@@ -112,3 +128,15 @@ def test_with_cpu_named_every_entry_point_runs(pose_model, hand_model,
                                device="cpu", compute_dtype=torch.float32)
     assert whole.device.type == whole.hand.device.type == "cpu"
     assert len(whole(frames)) == 1
+    wrapper = Wrapper(PoseConfig(model=PoseModel.MPI_15_4, tracking=1,
+                                 net_resolution=(80, 64),
+                                 compute_dtype="float32"), device="cpu")
+    assert wrapper.pose_extractor.device.type == "cpu"
+    assert wrapper._pose_tracker.device.type == "cpu"
+    for datum_id in range(2):       # a CNN frame, then an LK frame
+        datum = wrapper.process(frames[0], datum_id=datum_id)
+        assert datum.pose_keypoints.shape[1:] == (15, 3)
+    runner = VideoRunner(inference, batch_size=1)
+    results = list(runner._run_batches([(frames, np.ones(1), 1)],
+                                       lambda index: (80, 64)))
+    assert len(results) == 1 and results[0].index == 0

@@ -92,10 +92,12 @@ def test_small_spec_bf16_close_to_jax():
     np.testing.assert_allclose(got, want, rtol=5e-2, atol=5e-2)
 
 
-def test_body25_matches_jax():
-    """The full BODY_25 graph at a small input that is not a multiple of 16
-    (ceil-mode pools), with JAX weights through the bridge."""
-    info = POSE_MODEL_INFO[PoseModel.BODY_25]
+@pytest.mark.parametrize("name", ["BODY_25", "COCO_18", "MPI_15",
+                                  "MPI_15_4"])
+def test_body25_matches_jax(name):
+    """Each bundled pose graph, whole, at a small input that is not a
+    multiple of 16 (ceil-mode pools), with JAX weights through the bridge."""
+    info = POSE_MODEL_INFO[PoseModel[name]]
     spec = jgraph.load_spec(info.spec)
     params = _jax_params(spec, 5)
     image = np.random.RandomState(6).uniform(

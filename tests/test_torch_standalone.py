@@ -44,15 +44,18 @@ ALLOWED_STRING = re.compile(r"openpose_tpu/ops/paf_pallas\.py:\d+")
 
 
 def test_every_module_imports_with_jax_and_the_jax_package_blocked():
-    """A fresh interpreter in which any import of `openpose_tpu` or `jax`
-    raises imports every module of the port (walking the package) and
-    `chip_smoke.py`."""
+    """A fresh interpreter in which any import of `openpose_tpu`, `jax` or
+    `cv2` raises imports every module of the port (walking the package) and
+    `chip_smoke.py`; only `render/render.py`, which draws with OpenCV, is
+    imported after `cv2` is let through again."""
     script = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
+        blocked = {"openpose_tpu", "jax", "jaxlib", "cv2"}
+
         class Block(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("openpose_tpu", "jax", "jaxlib"):
+                if name.split(".")[0] in blocked:
                     raise ImportError(f"blocked import of {name}")
                 return None
 
@@ -61,17 +64,22 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
         names = ["openpose_tpu_torch", "chip_smoke"] + [
             m.name for m in pkgutil.walk_packages(
                 openpose_tpu_torch.__path__, "openpose_tpu_torch.")]
+        needs_cv2 = "openpose_tpu_torch.render.render"
+        assert needs_cv2 in names
         for name in names:
-            importlib.import_module(name)
-        loaded = [m for m in sys.modules
-                  if m.split(".")[0] in ("openpose_tpu", "jax", "jaxlib")]
+            if name != needs_cv2:
+                importlib.import_module(name)
+        loaded = [m for m in sys.modules if m.split(".")[0] in blocked]
         assert not loaded, loaded
+        blocked.discard("cv2")
+        importlib.import_module(needs_cv2)
+        assert "cv2" in sys.modules
         print(len(names))
     """)
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.strip()) >= 30
+    assert int(proc.stdout.strip()) >= 45
 
 
 def _docstrings(tree):
@@ -111,6 +119,121 @@ def test_no_python_source_names_the_jax_package(path):
                 and id(node) not in docstrings:
             rest = ALLOWED_STRING.sub("", node.value)
             assert not JAX_NAME.search(rest), (path, node.lineno, node.value)
+
+
+def test_only_the_renderer_imports_opencv():
+    importers = []
+    for path in _python_sources():
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = [a.name for a in node.names] \
+                if isinstance(node, ast.Import) else \
+                [node.module or ""] if isinstance(node, ast.ImportFrom) else []
+            if any(n.split(".")[0] == "cv2" for n in names):
+                importers.append(str(path.relative_to(ROOT)))
+    assert sorted(set(importers)) == ["openpose_tpu_torch/render/render.py"]
+
+
+def _code(path, only=None):
+    """The file's code as an AST dump without docstrings, with the JAX
+    package's name replaced by the port's; only: the top-level names to
+    keep."""
+    tree = ast.parse(JAX_NAME.sub("openpose_tpu_torch", path.read_text()))
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef)) \
+                and node.body and isinstance(node.body[0], ast.Expr) \
+                and isinstance(node.body[0].value, ast.Constant) \
+                and isinstance(node.body[0].value.value, str):
+            node.body = node.body[1:] or [ast.Pass()]
+    if only is not None:
+        tree.body = [n for n in tree.body
+                     if getattr(n, "name", None) in only]
+        assert len(tree.body) == len(only), [n.name for n in tree.body]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("relative", [
+    "utils/logging.py", "utils/native_build.py", "io/native_loader.py",
+    "runtime/pipeline.py", "render/render.py"])
+def test_copied_module_has_the_originals_code(relative):
+    """The modules that need no device library are copies: the same code
+    (docstrings aside) under the port's package name."""
+    assert _code(PORT / relative) \
+        == _code(ROOT / "openpose_tpu" / relative)
+
+
+@pytest.mark.parametrize("relative,names", [
+    ("pose/refine.py", ["_keypoints_rectangle", "_distance_average",
+                        "_rect_iou", "_Roi", "_merge_refined"]),
+    ("face/haar.py", ["HaarCascade", "parse_cascade", "_find_default_cascade",
+                      "_integral", "_rect_sums", "_detect_single_scale",
+                      "group_rectangles"]),
+    ("wrapper.py", ["PoseConfig", "FaceConfig", "HandConfig", "Datum"]),
+    ("tracking/person_id.py", ["PersonEntry"]),
+])
+def test_copied_host_helpers_have_the_originals_code(relative, names):
+    assert _code(PORT / relative, names) \
+        == _code(ROOT / "openpose_tpu" / relative, names)
+
+
+def _method(path, cls, name):
+    tree = ast.parse(JAX_NAME.sub("openpose_tpu_torch", path.read_text()))
+    for node in tree.body:
+        if isinstance(node, ast.ClassDef) and node.name == cls:
+            for item in node.body:
+                if getattr(item, "name", None) == name:
+                    return ast.dump(item)
+    raise AssertionError((path, cls, name))
+
+
+@pytest.mark.parametrize("relative,cls,name", [
+    ("wrapper.py", "Wrapper", "process"),
+    ("wrapper.py", "Wrapper", "render"),
+    ("tracking/person_id.py", "PersonIdExtractor", "_match_greedy"),
+    ("tracking/person_id.py", "PersonIdExtractor", "_capture"),
+    ("tracking/pose_graph.py", "KeyframeSmoother", "_assign_slots"),
+    ("tracking/pose_graph.py", "KeyframeSmoother", "push"),
+])
+def test_host_methods_are_the_originals(relative, cls, name):
+    """Host logic that the port took over as it is: every branch of
+    `Wrapper.process`, the greedy id matching, the smoother's slots."""
+    assert _method(PORT / relative, cls, name) \
+        == _method(ROOT / "openpose_tpu" / relative, cls, name)
+
+
+def test_haar_image_helpers_are_within_one_level_of_opencv():
+    """The port's Haar detector does in NumPy what the original takes from
+    cv2: gray conversion and the pyramid step exactly, the bilinear resize
+    within one gray level (cv2 interpolates in fixed point)."""
+    import cv2
+    from openpose_tpu_torch.face import haar
+    rng = np.random.RandomState(0)
+    image = cv2.GaussianBlur(rng.randint(0, 256, (121, 163, 3))
+                             .astype(np.uint8), (9, 9), 3)
+    gray = haar._bgr_to_gray(image)
+    np.testing.assert_array_equal(gray,
+                                  cv2.cvtColor(image, cv2.COLOR_BGR2GRAY))
+    np.testing.assert_array_equal(haar._pyr_down(gray), cv2.pyrDown(gray))
+    for size in ((100, 80), (136, 101), (60, 45), (163, 121)):
+        got = haar._resize_linear(gray, size).astype(int)
+        want = cv2.resize(gray, size, interpolation=cv2.INTER_LINEAR)
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= 1
+
+
+def test_haar_detector_equals_the_original_on_frames_without_faces():
+    from openpose_tpu.face import haar as jhaar
+    from openpose_tpu_torch.face import haar
+    if haar._find_default_cascade() is None:
+        pytest.skip("no haarcascade_frontalface_alt.xml on this machine")
+    assert haar._find_default_cascade() == jhaar._find_default_cascade()
+    rng = np.random.RandomState(1)
+    frame = rng.randint(0, 255, (400, 700, 3)).astype(np.uint8)  # pyrDown once
+    mine, theirs = haar.FaceDetectorOpenCV(), jhaar.FaceDetectorOpenCV()
+    got, want = mine.detect_faces(frame), theirs.detect_faces(frame)
+    assert got.shape == want.shape == (0, 4)
+    gray = rng.randint(0, 255, (90, 120)).astype(np.uint8)
+    assert haar.detect_multiscale(gray, mine.cascade) \
+        == jhaar.detect_multiscale(gray, theirs.cascade) == []
 
 
 def test_no_kernel_source_names_the_jax_package_outside_comments():
@@ -226,6 +349,47 @@ def test_caffe_proto_round_trip_equal():
         for g, w, a in zip(got_blobs[name], want_blobs[name], arrays):
             np.testing.assert_array_equal(g, w)
             np.testing.assert_array_equal(g, a)
+
+
+def test_zoo_finds_weights_under_a_model_folder_like_jax(tmp_path):
+    """`model_folder` and `prototxt` of the loaders (what `PoseConfig`
+    hands them): the reference's folder layout, an explicit caffemodel
+    first, random weights where neither exists."""
+    import torch
+    from openpose_tpu.models import zoo as jzoo
+    from openpose_tpu_torch.models import zoo
+    assert {k.name: v for k, v in zoo.CAFFEMODEL_PATHS.items()} \
+        == {k.name: v for k, v in jzoo.CAFFEMODEL_PATHS.items()}
+    assert zoo.FACE_CAFFEMODEL_PATH == jzoo.FACE_CAFFEMODEL_PATH
+    assert zoo.HAND_CAFFEMODEL_PATH == jzoo.HAND_CAFFEMODEL_PATH
+    prototxt = tmp_path / "small.prototxt"
+    prototxt.write_text(PROTOTXT)
+    rng = np.random.RandomState(0)
+    layers = {"conv1": [rng.randn(4, 3, 3, 3).astype(np.float32),
+                        rng.randn(4).astype(np.float32)],
+              "conv2": [rng.randn(2, 4, 1, 1).astype(np.float32),
+                        rng.randn(2).astype(np.float32)]}
+    weights = tmp_path / zoo.CAFFEMODEL_PATHS[params.PoseModel.BODY_25]
+    weights.parent.mkdir(parents=True)
+    weights.write_bytes(caffe_proto.serialize_caffemodel(layers))
+    for args in ((None, str(tmp_path)), (str(weights), None),
+                 (str(weights), str(tmp_path / "nowhere"))):
+        assert zoo.resolve_caffemodel(*args, "pose/body_25/pose_iter_584000"
+                                      ".caffemodel") \
+            == jzoo.resolve_caffemodel(*args, "pose/body_25/pose_iter_584000"
+                                       ".caffemodel") == str(weights)
+    assert zoo.resolve_caffemodel(None, str(tmp_path), "face/none") is None
+    found = zoo.load_pose_model(device="cpu", model_folder=str(tmp_path),
+                                prototxt=str(prototxt))
+    state = found.net.state_dict()
+    got = next(v for k, v in state.items() if v.shape == (4, 3, 3, 3))
+    assert torch.equal(got, torch.from_numpy(layers["conv1"][0]))
+    assert found.info.name == "BODY_25"
+    seeded = zoo.load_pose_model(device="cpu", prototxt=str(prototxt),
+                                 model_folder=str(tmp_path / "nowhere"))
+    assert not torch.equal(
+        next(v for v in seeded.net.state_dict().values()
+             if v.shape == (4, 3, 3, 3)), got)
 
 
 @pytest.mark.parametrize("name", ["body_25", "coco_18", "mpi_15", "mpi_15_4",
