@@ -44,15 +44,37 @@ with a non-zero exit when it fails:
    frames must carry the kept keypoints by that shift), and with injected
    people; per-stage times, CNN frames against LK frames, LK's launches
    and device-busy share, and LK on the card against LK on the CPU;
-10. runner: `VideoRunner`'s batch loop over batch-8 `PoseInference`, 6
+10. runner: `VideoRunner`'s batch loop over batch-8 `PoseInference`, 4
    batches of frames in memory, held to the sequential path on the same
-   frames; frames/s by assembly workers and batches in flight.
+   frames; frames/s by assembly workers and batches in flight;
+11. accuracy: the closed loop in float32: `accuracy.synthetic_coco_eval`
+   (64 scenes of 1-4 placed people, rendered as net outputs, decoded by
+   the real path) must reach AP 0.95 at 368x656 and 0.90 at 176x320,
+   `synthetic_topdown_eval` an RMSE under 2 px for faces and hands; the
+   fused kernel against its plain version on one of the loop's batches,
+   and where such a batch's time goes;
+12. train: one loss and its gradients at BODY_25's full width on the card
+   against the CPU in float64 (three readings of the card, the
+   convolution kernels that ran, a TF32 run as the control);
+   `train_loop.train` at 368x368, batch 8, in float32
+   and with bfloat16 operands (step time and its parts, fed rate, FLOP
+   rate against the datasheet peak, memory; the loss must fall); the
+   checkpoint it wrote, loaded into a serving model, must answer bit for
+   bit as the trained net; a short `accuracy.train_to_ap` at 184x328, and
+   the fused kernel against its plain version on a held-out frame of the
+   net it trained (1 frame, 22x40 maps, that net's peaks).
 
 The kernel phase also holds the fused kernel to its plain version at the
 refinement's shape (8 crops of 368x368, thresholds 0.02 and 0.01).
 
 `python3 chip_smoke.py --capped-trace` runs the people-capped call alone,
 timed and traced (to set two trees side by side on one card).
+`python3 chip_smoke.py --train-to-ap` trains BODY_25 from scratch for 1500
+steps (cosine schedule) and scores it through the whole pipeline, then
+serves the trained net from its checkpoint: the fused kernel against its
+plain version on a held-out frame, batch-8 `PoseInference` on held-out
+scenes and one frame through `Wrapper`s that load the checkpoint, without
+and with refinement (details in build/chip_smoke/train_to_ap.json).
 
 Each path's kernel launches are also counted for one call.  A kernel's
 bound is the least time the card could take for the same work: the larger
@@ -60,11 +82,14 @@ of its bytes (each input read once, each output written once) over the
 card's memory rate and its float operations (counted from this run's peak
 counts and line lengths) over the card's float32 rate.  The line before the
 last is the kernel summary, the last line {"ok": true, "device": {...}}.  Details go to build/chip_smoke/chip_smoke.json.
-About 4 minutes on one H100, the build included.
+The default run took 360 s on one H100 80GB HBM3 at 700 W, the build
+included, and `--train-to-ap` 175 s (both in one call, timed apart); a
+slower host has taken 519 s for the default run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -95,6 +120,11 @@ OPS_PER_SAMPLE_SCALE = 4 + 2 * 23 + 72 + 2
 OPS_PER_SAMPLE = 12 + 4 + 2
 # Per line: its geometry (two roots, four divisions) and the final score.
 OPS_PER_LINE = 24
+# Limits of float32 gradients against a float64 run, as shares of each
+# tensor's largest entry: the worst tensor and the median tensor
+# (`gradient_check` says where they come from).
+GRAD_WORST = 2e-2
+GRAD_MEDIAN = 2e-3
 
 
 def log(*args):
@@ -568,7 +598,7 @@ def scene_frames(rng, count, frame_hw, n_people=3):
 
 
 def main_path_phase(device, model, frame_hw=(720, 1280), net_h=368, batch=8,
-                    iters=10):
+                    iters=6):
     """PoseExtractor (f32 and bf16) and batched PoseInference on BODY_25."""
     import numpy as np
     import torch
@@ -1390,7 +1420,7 @@ def wrapper_phase(device, frame_hw=(720, 1280), net_size=368, n_people=4,
     return out
 
 
-def runner_phase(device, model, batch=8, net_hw=(368, 656), n_batches=6):
+def runner_phase(device, model, batch=8, net_hw=(368, 656), n_batches=4):
     """`VideoRunner`'s batch loop over batch-`batch` `PoseInference`, fed
     frames in memory: every frame's result, in order, equal to the
     sequential `inference(batch)` -> `fetch` -> `assemble` of the same
@@ -1464,6 +1494,612 @@ def runner_phase(device, model, batch=8, net_hw=(368, 656), n_batches=6):
     return out
 
 
+def accuracy_phase(device, model, n_images=64, net_hws=((368, 656), (176, 320)),
+                   ap_floors=(0.95, 0.90), batch=8, topdown_frames=16,
+                   topdown_net=368, iters=10):
+    """The closed accuracy loop in float32: `accuracy.synthetic_coco_eval`
+    at each net size must reach its AP floor and `synthetic_topdown_eval`
+    an RMSE under 2 px for faces and hands (the limits of the JAX
+    package's own tests).  Then one batch of the loop (1-4 placed people a
+    frame) by hand: the fused kernel against its plain version on the
+    batch's tensors, and where a batch's time goes."""
+    import numpy as np
+    import torch
+    from openpose_tpu_torch import accuracy, synthetic, train
+    from openpose_tpu_torch.ops import paf, paf_cuda
+    from openpose_tpu_torch.parallel.inference import PoseInference
+
+    out = {}
+    reset_launches()
+    for net_hw, floor in zip(net_hws, ap_floors):
+        t0 = time.perf_counter()
+        metrics = accuracy.synthetic_coco_eval(
+            n_images=n_images, net_hw=net_hw, batch=batch, model=model,
+            device=device)
+        metrics["seconds"] = time.perf_counter() - t0
+        out[f"coco_{net_hw[0]}x{net_hw[1]}"] = metrics
+        log(f"accuracy: synthetic_coco_eval at {net_hw}, {n_images} images: "
+            f"{json.dumps(metrics)} (AP floor {floor})")
+        assert metrics["AP"] >= floor, metrics
+    for kind in ("face", "hand"):
+        metrics = accuracy.synthetic_topdown_eval(
+            kind, n_frames=topdown_frames, net_size=topdown_net, batch=batch,
+            device=device)
+        out[f"topdown_{kind}"] = metrics
+        log(f"accuracy: synthetic_topdown_eval {json.dumps(metrics)} "
+            f"(RMSE limit 2.0 px)")
+        assert metrics["rmse_px"] < 2.0 and metrics["n_instances"] > 0, metrics
+    out["launches"] = read_launches("accuracy loop", paf_cuda.paf_scores_fused)
+
+    # one batch of the loop, as `synthetic_coco_eval` makes it
+    net_hw = net_hws[0]
+    info = model.info
+    rng = np.random.RandomState(0)
+    kp = np.zeros((batch, 4, info.num_parts, 3), np.float32)
+    for b in range(batch):
+        people = synthetic.random_people(rng, rng.randint(1, 5), net_hw)
+        kp[b, :len(people)] = people
+    inference = PoseInference(model, net_hw=net_hw, device=device,
+                              net_bypass=True, compute_dtype=torch.float32)
+    kp_dev = torch.from_numpy(kp).to(device)
+    render = lambda: train.make_targets(
+        kp_dev, inference.pairs, inference.map_idx, net_hw, info.num_parts,
+        info.heatmap_channels)
+    net_out = render()
+    nms_thr, inter_thr, inter_min = inference.thresholds
+    with torch.inference_mode():
+        peaks, _ = inference.decode([net_out])
+        args = ([net_out], [1.0], net_hw, peaks, inference.pairs,
+                inference.map_idx, inter_thr, inter_min, nms_thr)
+        got = paf_cuda.paf_scores_fused(*args)
+        want = paf.paf_scores_multiscale_reference(*args)
+        kernel = {
+            "max_abs_err": float((got - want).abs().max()),
+            "mismatches": int((got != want).sum()),
+            "accepted": int((want > 0).sum()),
+            "peaks_per_part_mean": float(peaks[:, :, 0, 0].mean()),
+            "ms": timed(lambda: paf_cuda.paf_scores_fused(*args), 3, 20,
+                        device),
+            "plain_ms": timed(
+                lambda: paf.paf_scores_multiscale_reference(*args), 1, 2,
+                device),
+            "bound": fused_bound([net_out], peaks, inference.pairs,
+                                 inference.map_idx)}
+    kernel["share_of_bound"] = kernel["bound"]["bound_ms"] / kernel["ms"]
+    kernel["launches_per_batch"] = launches_per_call(
+        "accuracy loop, one batch", lambda: inference(net_out))[
+            "paf_scores_fused"]
+    out["kernel_on_loop_batch"] = kernel
+    log(f"fused kernel on a batch of the accuracy loop ({batch} x "
+        f"{net_hw[0] // 8}x{net_hw[1] // 8} maps): tol={KERNEL_TOL} "
+        + json.dumps(kernel))
+    assert kernel["mismatches"] == 0 and kernel["max_abs_err"] <= KERNEL_TOL
+    assert kernel["accepted"] > 0
+
+    def assemble_all(pk, sc):
+        return [inference.assemble(pk[b], sc[b], 1.0) for b in range(batch)]
+
+    def end_to_end():
+        return assemble_all(*inference.fetch(*inference(render())))
+    pk, sc = inference.fetch(*inference(net_out))
+    ms_device = timed(lambda: inference(net_out), 2, iters, device)
+    ms_fetch = host_ms(lambda: inference.fetch(*inference(net_out)), iters)
+    ms_e2e = host_ms(end_to_end, iters)
+    timing = {
+        "people_per_frame": [len(kps) for kps, _ in assemble_all(pk, sc)],
+        "placed_per_frame": (kp[:, :, 0, 2] > 0).sum(axis=1).tolist(),
+        "ms_render_targets": timed(render, 2, iters, device),
+        "ms_decode_device": ms_device,
+        "ms_fetch": ms_fetch - ms_device,
+        "ms_assembly": host_ms(lambda: assemble_all(pk, sc), iters),
+        "ms_end_to_end": ms_e2e, "images_per_s": batch * 1e3 / ms_e2e}
+    if device.type == "cuda":
+        timing["trace"] = device_busy(end_to_end, 5)
+    out["batch_timing"] = timing
+    log(f"accuracy loop, one batch of {batch} at {net_hw}, f32: "
+        + json.dumps(timing))
+    assert timing["people_per_frame"] == timing["placed_per_frame"]
+    return out
+
+
+def _training_batch(device, config, seed=0):
+    """One batch of the trainer's scenes on the device: (uint8 images,
+    keypoints)."""
+    import torch
+    from openpose_tpu_torch import train_loop
+    images, keypoints = next(train_loop.synthetic_scene_iterator(
+        config, seed=seed, device=device))
+    return images, torch.from_numpy(keypoints).to(device)
+
+
+def conv_kernels(prof, top=6):
+    """The convolution kernels of a torch.profiler trace: the `top` names by
+    device time (ms), and whether any is a Winograd or FFT algorithm (the
+    cuDNN engines that do not compute the plain sums of products)."""
+    from torch.autograd import DeviceType
+    words = ("cudnn", "cutlass", "gemm", "conv", "grad", "fprop", "winograd",
+             "fft", "xmma")
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA \
+                and any(w in e.name.lower() for w in words):
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us()
+    names = sorted(by_name, key=by_name.get, reverse=True)
+    return {"distinct": len(names),
+            "winograd_or_fft": sorted(n[:60] for n in names if any(
+                w in n.lower() for w in ("winograd", "fft"))),
+            "top_ms": [(n[:60], by_name[n] / 1e3) for n in names[:top]]}
+
+
+def gradient_check(device, image_size=(96, 128), batch=2, seeds=(0,)):
+    """One loss and its gradients at BODY_25's full width on the card in
+    float32 (TF32 off) against the same on the CPU in float64.
+
+    Tolerance.  At He-normal weights float32 itself is far from a float64
+    run: a pre-activation within rounding of 0 switches a PReLU or ReLU
+    branch, and some hundred layers hand the difference on.  How far is a
+    property of the batch and the weights, not of the algorithm.  NVIDIA
+    H100, 96x128, batch 2, seeds 0, 1, 2, errors as shares of each tensor's
+    largest entry: the card's worst tensor 8.1e-3, 8.8e-3, 4.3e-4, its
+    median tensor 6.1e-4, 2.6e-4, 1.1e-6; the CPU's own float32 (plain sums
+    of products) 6.2e-3, 8.6e-3, 6.6e-3 and 4.7e-4, 7.5e-5, 6.1e-5.  The
+    card's float32 is read three times: with cuDNN's benchmarked algorithms
+    (as the trainer runs; the trace holds the search's trials too), with
+    `cudnn.deterministic` and no benchmark, and from the benchmark's cache
+    after a float64 run on the card (the trace holds the chosen kernels
+    only).  cuDNN picks Winograd weight-gradient kernels for some layers
+    and, in the deterministic mode, FFT ones; the three readings agree in
+    their first four digits all the same.  With TF32 convolutions the card
+    is at 5.7e-2 to 6.0e-2 and 1.0e-2 to 1.5e-2: that run is the control
+    and must fail the limits.  Limits: loss within 1e-4 relative, every
+    gradient finite and within GRAD_WORST of its tensor's largest entry,
+    the median tensor within GRAD_MEDIAN."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from openpose_tpu_torch import train, train_loop
+    from openpose_tpu_torch.models import graph
+    from openpose_tpu_torch.ops import paf
+    from openpose_tpu_torch.ops.resize import normalize_vgg
+    from openpose_tpu_torch.params import POSE_MODEL_INFO, PoseModel
+
+    info = POSE_MODEL_INFO[PoseModel.BODY_25]
+    spec = graph.load_spec(info.spec)
+    config = train_loop.TrainConfig(image_size=image_size, batch_size=batch)
+    cpu = torch.device("cpu")
+    pairs, map_idx = (torch.from_numpy(t) for t in paf.pair_tables(info))
+    cudnn = torch.backends.cudnn
+    out = {"image_size": list(image_size), "batch": batch,
+           "limits": {"loss": 1e-4, "worst": GRAD_WORST,
+                      "median": GRAD_MEDIAN}, "seeds": {}}
+    for seed in seeds:
+        images, keypoints = _training_batch(cpu, config, seed=seed)
+        targets = train.make_targets(keypoints, pairs, map_idx, image_size,
+                                     info.num_parts, info.heatmap_channels)
+        x = normalize_vgg(images.to(torch.float32))
+        params = graph.init_params(spec, torch.Generator().manual_seed(seed))
+
+        def run(dev, dtype=torch.float32, tf32=False, benchmark=True,
+                deterministic=False):
+            """(loss, gradients, convolution kernels) of one step.  The
+            float32 step is the trainer's own (`train.loss_fn` inside
+            `full_f32_convs`); float64 and TF32, which the port's entry
+            points refuse, go through the net's layers directly."""
+            net = graph.PoseNet(spec, params, trainable=True).to(dev)
+            x_dev, t_dev = x.to(dev), targets.to(dev)
+            trace = contextlib.nullcontext() if dev.type != "cuda" else \
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+            with cudnn.flags(enabled=True, benchmark=benchmark,
+                             deterministic=deterministic, allow_tf32=tf32), \
+                    trace as prof:
+                if dtype == torch.float32 and not tf32:
+                    with graph.full_f32_convs():
+                        loss = train.loss_fn(net, x_dev, t_dev, dtype)
+                        loss.backward()
+                else:
+                    loss = torch.mean((net._run(x_dev, dtype) - t_dev) ** 2)
+                    loss.backward()
+                _sync(dev)
+            grads = {name: p.grad.double().cpu()
+                     for name, p in net.weights.items()}
+            assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+            return float(loss.detach()), grads, \
+                conv_kernels(prof) if prof is not None else None
+
+        want_loss, want, _ = run(cpu, torch.float64)
+
+        def errors(result):
+            loss, grads, kernels = result
+            rel = {name: float((grads[name] - ref).abs().max()
+                               / ref.abs().max().clamp(min=1e-30))
+                   for name, ref in want.items()}
+            worst = max(rel, key=rel.get)
+            return {"loss_rel_err": abs(loss - want_loss) / abs(want_loss),
+                    "worst": rel[worst], "worst_tensor": worst,
+                    "median": float(np.median(list(rel.values()))),
+                    "conv_kernels": kernels}
+        readings = {
+            "card_f32_benchmark": errors(run(device)),
+            "card_f32_deterministic": errors(
+                run(device, benchmark=False, deterministic=True)),
+            "card_f64": errors(run(device, torch.float64)),
+            "card_f32_benchmark_after_f64": errors(run(device)),
+            "card_tf32_control": errors(run(device, tf32=True)),
+            "cpu_f32": errors(run(cpu))}
+        readings["loss_cpu_f64"] = want_loss
+        readings["tensors"] = len(want)
+        out["seeds"][seed] = readings
+        for name, r in readings.items():
+            if isinstance(r, dict):
+                log(f"train (a) seed {seed}, {name} vs CPU f64: "
+                    + json.dumps(r))
+        for name in ("card_f32_benchmark", "card_f32_deterministic",
+                     "card_f32_benchmark_after_f64"):
+            r = readings[name]
+            assert r["loss_rel_err"] <= 1e-4, (name, r)
+            assert r["worst"] <= GRAD_WORST, (name, r)
+            assert r["median"] <= GRAD_MEDIAN, (name, r)
+        if device.type == "cuda":   # the control: the limits can see TF32
+            r = readings["card_tf32_control"]
+            assert r["worst"] > GRAD_WORST or r["median"] > GRAD_MEDIAN, r
+    return out
+
+
+def step_breakdown(device, config, compute_dtype, iters=5):
+    """Where one train step's time goes (CUDA events around each part, its
+    inputs ready on the device), torch's FLOP count of one real step, and
+    the scene renderers' times."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from openpose_tpu_torch import synthetic, train, train_loop
+    from openpose_tpu_torch.models import graph
+    from openpose_tpu_torch.ops.resize import normalize_vgg
+
+    trainer = train_loop.Trainer(config, device, compute_dtype)
+    images, keypoints = _training_batch(device, config)
+    state, info = trainer.state, trainer.info
+    make_targets = lambda: train.make_targets(
+        keypoints, trainer.pairs, trainer.map_idx, config.image_size,
+        info.num_parts, info.heatmap_channels, sigma=config.target_sigma)
+    targets = make_targets()
+    x = normalize_vgg(images.to(torch.float32))
+    trainer.step(images, keypoints)                       # warm-up
+    with FlopCounterMode(display=False) as counter:
+        trainer.step(images, keypoints)
+    out = {"step_flops_counted": counter.get_total_flops(),
+           "step_flops_3x_forward": 3e9 * trainer.fwd_gflops
+           * config.batch_size}
+
+    def forward():
+        with torch.no_grad():
+            return train.loss_fn(state.net, x, targets, compute_dtype)
+
+    def forward_backward():
+        state.optimizer.zero_grad(set_to_none=True)
+        with graph.full_f32_convs():
+            train.loss_fn(state.net, x, targets, compute_dtype).backward()
+    out["ms_forward"] = timed(forward, 1, iters, device)
+    out["ms_forward_backward"] = timed(forward_backward, 1, iters, device)
+    out["ms_optimizer"] = timed(state.optimizer.step, 1, iters, device)
+    out["ms_targets"] = timed(make_targets, 1, iters, device)
+    out["ms_normalize"] = timed(
+        lambda: normalize_vgg(images.to(torch.float32)), 1, iters, device)
+    out["ms_whole_step"] = timed(lambda: trainer.step(images, keypoints), 1,
+                                 iters, device)
+    if device.type == "cuda":
+        out["trace_whole_step"] = device_busy(
+            lambda: (trainer.step(images, keypoints), _sync(device)), 2)
+    # the scenes: the numpy renderer on the host against the iterator's
+    # split (people and noise on the host, strokes on the device)
+    h, w = config.image_size
+    kps = keypoints.cpu().numpy()
+    rng = np.random.RandomState(0)
+    host_images = np.stack([synthetic.scene_background((h, w), rng)
+                            for _ in range(config.batch_size)])
+    background = torch.from_numpy(host_images.astype(np.uint8))
+    out["ms_numpy_renderer"] = host_ms(lambda: [
+        synthetic.render_scene_image(people[people[:, 0, 2] > 0], (h, w), rng)
+        for people in kps], 2)
+    out["ms_host_noise"] = host_ms(lambda: [
+        synthetic.scene_background((h, w), rng).astype(np.uint8)
+        for _ in range(config.batch_size)], 2)
+    out["ms_host_to_device"] = host_ms(
+        lambda: (background.to(device), _sync(device)), iters)
+    on_device = background.to(device)
+    out["ms_device_renderer"] = timed(
+        lambda: synthetic.render_scene_batch(kps, on_device), 1, iters, device)
+    it = train_loop.synthetic_scene_iterator(config, device=device)
+    out["ms_iterator_batch"] = host_ms(lambda: (next(it), _sync(device)), 3)
+    return out
+
+
+def _sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _serving_peak_mb(model, images, dtype, device):
+    """Peak device memory of one `PoseInference` call on `images`, above
+    what was allocated before it (0.0 on a CPU)."""
+    import torch
+    from openpose_tpu_torch.parallel.inference import PoseInference
+    inference = PoseInference(model, net_hw=tuple(images.shape[1:3]),
+                              device=device, compute_dtype=dtype)
+    inference(images)                                   # warm-up
+    if device.type != "cuda":
+        return 0.0
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    peaks, scores = inference(images)
+    torch.cuda.synchronize(device)
+    assert not peaks.requires_grad and not scores.requires_grad
+    return (torch.cuda.max_memory_allocated(device) - before) / 1e6
+
+
+def trained_frame_kernel_check(device, trained, image_size, seed=1,
+                               iters=20):
+    """The fused kernel against its plain version at the shape that
+    `accuracy.train_to_ap`'s evaluation gives it: the first held-out frame
+    (the evaluation's own seed) through the trained net as
+    `PoseExtractor.forward` runs it in float32: N = 1, one scale, maps of an
+    eighth of the net input (image_size to a multiple of 16: 22x40 at
+    184x328), the trained net's own peaks."""
+    import numpy as np
+    import torch
+    from openpose_tpu_torch import accuracy
+    from openpose_tpu_torch.ops import paf, paf_cuda
+    from openpose_tpu_torch.pose import scaler
+    from openpose_tpu_torch.pose.extractor import PoseExtractor
+
+    h, w = image_size
+    placed, frame = accuracy.held_out_scenes(1, image_size, (1, 3), seed)[0]
+    extractor = PoseExtractor(trained, compute_dtype=torch.float32,
+                              device=device)
+    plan = scaler.extract_scales((w, h), (w, h))
+    pairs, map_idx = (torch.from_numpy(t).to(device)
+                      for t in paf.pair_tables(trained.info))
+    cp = extractor.connect
+    image = torch.tensor(frame.astype(np.float32)[None], device=device)
+    with torch.inference_mode():
+        sources = extractor.net_outputs(image, plan)
+        peaks, _ = extractor.decode(sources, plan, 0.5)
+        args = (sources, plan.scale_input_to_net, (h, w), peaks, pairs,
+                map_idx, cp.inter_threshold, cp.inter_min_above_threshold,
+                cp.nms_threshold)
+        got = paf_cuda.paf_scores_fused(*args)
+        want = paf.paf_scores_multiscale_reference(*args)
+        out = {
+            "maps": list(sources[0].shape), "placed": len(placed),
+            "max_abs_err": float((got - want).abs().max()),
+            "mismatches": int((got != want).sum()),
+            "accepted": int((want > 0).sum()),
+            "peaks_per_part_mean": float(peaks[:, :, 0, 0].mean()),
+            "ms": timed(lambda: paf_cuda.paf_scores_fused(*args), 3, iters,
+                        device),
+            "plain_ms": timed(
+                lambda: paf.paf_scores_multiscale_reference(*args), 1, 2,
+                device),
+            "bound": fused_bound(sources, peaks, pairs, map_idx)}
+    out["share_of_bound"] = out["bound"]["bound_ms"] / out["ms"]
+    log(f"fused kernel on a held-out frame of the trained net (1 x "
+        f"{out['maps'][1]}x{out['maps'][2]} maps): tol={KERNEL_TOL} "
+        + json.dumps(out))
+    assert out["mismatches"] == 0 and out["max_abs_err"] <= KERNEL_TOL, out
+    assert out["accepted"] > 0, out
+    return out
+
+
+def train_phase(device, image_size=(368, 368), batch=8, steps=30,
+                check_size=(96, 128), t2ap_steps=400, t2ap_size=(184, 328),
+                t2ap_eval=16):
+    """The trainer on the card at BODY_25's full width: (a) gradients
+    against the CPU; (b) `train_loop.train` at `TrainConfig`'s default size
+    with float32 and with bfloat16 operands: step time, fed rate, FLOP
+    rate against the datasheet peak, memory; the loss must fall and the
+    parameters stay finite; (c) the checkpoint it wrote, loaded into a
+    serving model, answers bit for bit as the trained net; (d) a short
+    `accuracy.train_to_ap`."""
+    import shutil
+    import torch
+    from openpose_tpu_torch import accuracy, train_loop
+    from openpose_tpu_torch.models import checkpoint, graph, zoo
+    from openpose_tpu_torch.ops import paf_cuda
+    from openpose_tpu_torch.params import POSE_MODEL_INFO, PoseModel
+
+    info = POSE_MODEL_INFO[PoseModel.BODY_25]
+    reset_launches()
+    out = {"gradients": gradient_check(device, check_size)}
+    ckpt_dir = OUT_DIR / "checkpoints"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        config = train_loop.TrainConfig(
+            image_size=image_size, batch_size=batch, steps=steps,
+            checkpoint_every=steps, checkpoint_dir=str(ckpt_dir / name))
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        stats = {}
+        state = train_loop.train(
+            config, train_loop.synthetic_scene_iterator(
+                config, prefetch_workers=2, device=device),
+            verbose=False, stats_out=stats, device=device,
+            compute_dtype=dtype)
+        if device.type == "cuda":
+            stats["peak_memory_gb"] = \
+                torch.cuda.max_memory_allocated(device) / 1e9
+        stats.update(train_loop.device_step_probe(
+            config, device=device, compute_dtype=dtype))
+        stats["breakdown"] = step_breakdown(device, config, dtype)
+        first, last = stats["losses"][0], stats["losses"][steps - 1]
+        finite = all(bool(torch.isfinite(p).all())
+                     for p in state.net.parameters())
+        out[name] = stats
+        log(f"train (b) {name}: {steps} steps of batch {batch} at "
+            f"{image_size}: {json.dumps(stats)}")
+        assert finite, f"{name}: a parameter is not finite"
+        # observed on the card: 1.09 -> 0.0064 in 30 steps, both types
+        assert last < 0.1 * first, f"{name}: loss {first} -> {last}"
+
+        # (c) the checkpoint against the net that wrote it
+        path = ckpt_dir / name / f"{info.name}_step{steps}.npz"
+        served = zoo.from_params(graph.load_spec(info.spec),
+                                 checkpoint.load_npz(str(path)), info, device)
+        images, _ = _training_batch(device, config, seed=5)
+        x = images[:2].to(torch.float32) / 256.0 - 0.5
+        with torch.inference_mode():
+            want = state.net.serving_view()(x, dtype)
+            got = served.forward(x, dtype)
+        equal = bool(torch.equal(got, want))
+        out[name]["checkpoint_bit_equal"] = equal
+        out[name]["checkpoint_mb"] = path.stat().st_size / 1e6
+        log(f"train (c) {name}: {path.name} ({out[name]['checkpoint_mb']:.1f} "
+            f"MB) loaded into a serving model: outputs bit-equal to the "
+            f"trained net's: {equal}; requires_grad of its output: "
+            f"{got.requires_grad}")
+        assert equal and not got.requires_grad and got.grad_fn is None
+        # serving records no graph: a call takes the device memory it takes
+        # with weights from a file, over the trainer's own storage too
+        state.optimizer.zero_grad(set_to_none=True)
+        peaks = {"loaded": _serving_peak_mb(served, images, dtype, device),
+                 "serving_view": _serving_peak_mb(
+                     zoo.Model(served.spec, state.net.serving_view(), info),
+                     images, dtype, device),
+                 "trainers_net": _serving_peak_mb(
+                     zoo.Model(served.spec, state.net, info), images, dtype,
+                     device)}
+        out[name]["serving_peak_mb"] = peaks
+        log(f"train (c) {name}: peak device memory of one PoseInference call "
+            f"above what was held before it (MB): {json.dumps(peaks)}")
+        assert max(peaks.values()) - min(peaks.values()) <= 1.0, peaks
+        del state, served
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # (d) train -> checkpoint -> serve -> AP, short
+    t0 = time.perf_counter()
+    metrics = accuracy.train_to_ap(
+        steps=t2ap_steps, image_size=t2ap_size, batch=batch, n_eval=t2ap_eval,
+        checkpoint_dir=str(ckpt_dir / "t2ap"), verbose=False, device=device)
+    metrics["seconds"] = time.perf_counter() - t0
+    out["train_to_ap"] = metrics
+    log(f"train (d): train_to_ap, {t2ap_steps} steps at {t2ap_size}, f32: "
+        + json.dumps(metrics))
+    losses = metrics["losses"]
+    assert all(v == v and v < float("inf") for v in losses.values()), losses
+    # observed on the card: 0.99 -> 0.0084 at step 50 -> 0.0033 at step 399
+    assert losses[t2ap_steps - 1] < 0.05 * losses[0], losses
+    assert metrics["n_gt"] > 0
+    # the evaluation's frames went through the fused kernel, one each
+    out["launches"] = read_launches("train path", paf_cuda.paf_scores_fused)
+    # and at that shape the kernel is held to its plain version
+    trained = zoo.load_pose_model(
+        caffemodel=str(ckpt_dir / "t2ap" / f"{info.name}_step{t2ap_steps}.npz"),
+        device=device)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out["kernel_on_trained_frame"] = trained_frame_kernel_check(
+        device, trained, t2ap_size)
+    return out
+
+
+def train_to_ap_run(device, steps=1500, image_size=(184, 328), batch=8,
+                    n_eval=16):
+    """`--train-to-ap`: BODY_25 trained from scratch with the cosine
+    schedule until the pipeline decodes it (the mark: AP50 >= 0.9 on the
+    held-out scenes), then the trained net, loaded from its checkpoint:
+    the fused kernel against its plain version on a held-out frame, batch-8
+    `PoseInference` on held-out scenes, and one frame through `Wrapper`s
+    that load the checkpoint themselves, without and with top-down
+    refinement."""
+    import numpy as np
+    import torch
+    from openpose_tpu_torch import accuracy
+    from openpose_tpu_torch.models import zoo
+    from openpose_tpu_torch.ops import paf_cuda
+    from openpose_tpu_torch.parallel.inference import PoseInference
+    from openpose_tpu_torch.params import POSE_MODEL_INFO, PoseModel
+    from openpose_tpu_torch.wrapper import PoseConfig, Wrapper
+
+    ckpt_dir = OUT_DIR / "train_to_ap"
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = accuracy.train_to_ap(
+        steps=steps, image_size=image_size, batch=batch, n_eval=n_eval,
+        lr_schedule="cosine", checkpoint_dir=str(ckpt_dir), verbose=True,
+        device=device)
+    metrics["seconds"] = time.perf_counter() - t0
+    log(f"train_to_ap, {steps} steps at {image_size}, cosine, f32: "
+        + json.dumps(metrics))
+    log(f"AP50 >= 0.9 reached: {metrics['AP50'] >= 0.9}")
+    out = {"train_to_ap": metrics}
+
+    info = POSE_MODEL_INFO[PoseModel.BODY_25]
+    path = str(ckpt_dir / f"{info.name}_step{steps}.npz")
+    trained = zoo.load_pose_model(caffemodel=path, device=device)
+    out["launches"] = read_launches("train_to_ap's evaluation",
+                                    paf_cuda.paf_scores_fused)
+    out["kernel_on_trained_frame"] = trained_frame_kernel_check(
+        device, trained, image_size)
+    scenes = accuracy.held_out_scenes(batch, image_size, (1, 3), seed=2)
+    frames = torch.from_numpy(np.stack([img for _, img in scenes])).to(device)
+    inference = PoseInference(trained, net_hw=image_size, device=device)
+
+    def end_to_end():
+        pk, sc = inference.fetch(*inference(frames))
+        return pk, [inference.assemble(pk[b], sc[b]) for b in range(batch)]
+    pk, people = end_to_end()
+    ms_device = timed(lambda: inference(frames), 2, 10, device)
+    ms_fetch = host_ms(lambda: inference.fetch(*inference(frames)), 10)
+    sc = inference.fetch(*inference(frames))[1]
+    ms_e2e = host_ms(end_to_end, 10)
+    served = {
+        "batch": batch, "net_hw": list(image_size), "compute_dtype": "bf16",
+        "peaks_per_part_mean": float(pk[:, :, 0, 0].mean()),
+        "people_per_frame": [len(kps) for kps, _ in people],
+        "placed_per_frame": [len(p) for p, _ in scenes],
+        "ms_device": ms_device, "ms_fetch": ms_fetch - ms_device,
+        "ms_assembly": host_ms(lambda: [inference.assemble(pk[b], sc[b])
+                                        for b in range(batch)], 10),
+        "ms_end_to_end": ms_e2e, "fps_end_to_end": batch * 1e3 / ms_e2e}
+    if device.type == "cuda":
+        served["trace"] = device_busy(end_to_end, 5)
+    out["served"] = served
+    log(f"the trained net, batch-{batch} PoseInference on held-out scenes: "
+        + json.dumps(served))
+
+    # one frame through two Wrappers made by the constructor on the
+    # checkpoint, without and with refinement: a person whose keypoints the
+    # refined one moved was replaced by the merge branch
+    placed, frame = accuracy.held_out_scenes(1, image_size, (3, 3), seed=3)[0]
+    data, launches = {}, {}
+    for refined in (False, True):
+        wrapper = Wrapper(PoseConfig(
+            caffemodel=path, net_resolution=(image_size[1], image_size[0]),
+            compute_dtype="float32", top_down_refinement=refined),
+            device=device)
+        launches[refined] = launches_per_call(
+            f"Wrapper.process on the trained net, refinement {refined}",
+            lambda: data.update({refined: wrapper.process(frame)}))[
+                "paf_scores_fused"]
+    plain, fine = data[False].pose_keypoints, data[True].pose_keypoints
+    assert plain.shape == fine.shape, (plain.shape, fine.shape)
+    moved = np.abs(fine - plain).reshape(len(plain), -1).max(axis=1) \
+        if len(plain) else np.zeros(0)
+    out["refined_frame"] = {
+        "placed": len(placed), "people": len(plain),
+        "fused_launches_plain": launches[False],
+        "fused_launches_refined": launches[True],
+        "replaced": int((moved > 1e-3).sum()),
+        "max_keypoint_shift_px": [float(m) for m in moved]}
+    log(f"Wrapper.process with refinement on a trained net's frame: "
+        + json.dumps(out["refined_frame"]))
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "train_to_ap.json").write_text(json.dumps(out, indent=1))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1495,6 +2131,9 @@ def main() -> int:
     if sys.argv[1:] == ["--capped-trace"]:
         capped_trace(device, model)
         return 0
+    if sys.argv[1:] == ["--train-to-ap"]:
+        train_to_ap_run(device)
+        return 0
     report["kernel"] = kernel_phase(device, model.info)
     report["sampler"] = sampler_phase(device)
     report["main_path"] = main_path_phase(device, model)
@@ -1503,6 +2142,8 @@ def main() -> int:
     report["injection"] = injection_phase(device, model)
     report["wrapper"] = wrapper_phase(device)
     report["runner"] = runner_phase(device, model)
+    report["accuracy"] = accuracy_phase(device, model)
+    report["train"] = train_phase(device)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -1517,9 +2158,11 @@ def main() -> int:
         "replaces": "openpose_tpu/ops/paf_pallas.py:286",
         "launches": sum(report[phase]["launches"]["paf_scores_fused"]
                         for phase in ("main_path", "whole_body", "wrapper",
-                                      "runner")),
+                                      "runner", "accuracy", "train")),
         "max_abs_err": max(kernel["max_abs_err"], report["main_path"][
-            "breakdown"]["paf_main_path_max_abs_err"]),
+            "breakdown"]["paf_main_path_max_abs_err"], report["accuracy"][
+            "kernel_on_loop_batch"]["max_abs_err"], report["train"][
+            "kernel_on_trained_frame"]["max_abs_err"]),
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound"]["bound_ms"],
         "bound_by": kernel["bound"]["bound_by"], "library_ms": None}, {

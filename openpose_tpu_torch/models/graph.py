@@ -17,6 +17,11 @@ topology files) runs as an `nn.Module` over a dict of activations:
   order alone causes (tests/test_torch_graph.py, BODY_25 in bfloat16).
   float32 convolutions run with cuDNN's TF32 switched off, set as a context
   around the forward pass, not as a global side effect.
+* Serving nets hold parameters that take no gradient.  A trainer builds
+  `PoseNet(spec, params, trainable=True)`, calls it outside
+  `torch.inference_mode()` and wraps forward and backward in
+  `full_f32_convs()` (the backward pass runs after `forward` has left its
+  own context); `serving_view()` gives a serving net over the same storage.
 * Caffe pooling uses ceil-mode output sizes with -inf padding at the bottom
   and right, written out explicitly (PyTorch's ceil_mode drops a last window
   that starts in the padding; Caffe's output size keeps it).
@@ -24,10 +29,11 @@ topology files) runs as an `nn.Module` over a dict of activations:
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import pathlib
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -117,10 +123,59 @@ def _max_pool(x: torch.Tensor, layer: LayerSpec) -> torch.Tensor:
     return F.max_pool2d(x, k, s)
 
 
-class PoseNet(nn.Module):
-    """A `NetSpec` as an `nn.Module`: image NHWC -> net output NHWC float32."""
+def count_flops(spec: NetSpec, hw: Tuple[int, int], in_channels: int = 3
+                ) -> Dict[str, int]:
+    """Per-layer FLOPs (2 per multiply-add) for one image at input (H, W),
+    shapes propagated as `PoseNet` does (Caffe ceil-mode pooling).  Returns
+    {layer_name: flops}; sum the values for the per-image total."""
+    shapes: Dict[str, Tuple[int, int, int]] = {
+        spec.input: (hw[0], hw[1], in_channels)}
+    flops: Dict[str, int] = {}
+    for layer in spec.layers:
+        h, w, c = shapes[layer.bottoms[0]]
+        if layer.type == "Convolution":
+            k, s, p = layer.kernel, layer.stride, layer.pad
+            oh = (h + 2 * p - k) // s + 1
+            ow = (w + 2 * p - k) // s + 1
+            out = (oh, ow, layer.num_output)
+            flops[layer.name] = 2 * k * k * c * layer.num_output * oh * ow
+        elif layer.type == "Pooling":
+            k, s, p = layer.kernel, layer.stride, layer.pad
+            oh = -(-(h + 2 * p - k) // s) + 1
+            ow = -(-(w + 2 * p - k) // s) + 1
+            out = (oh, ow, c)
+            flops[layer.name] = k * k * c * oh * ow
+        elif layer.type in ("ReLU", "PReLU"):
+            out = (h, w, c)
+            flops[layer.name] = h * w * c
+        elif layer.type == "Concat":
+            out = (h, w, sum(shapes[b][2] for b in layer.bottoms))
+            flops[layer.name] = 0
+        else:
+            raise ValueError(f"unsupported layer type: {layer.type}")
+        for top in layer.tops:
+            shapes[top] = out
+    return flops
 
-    def __init__(self, spec: NetSpec, params: Params):
+
+@contextlib.contextmanager
+def full_f32_convs():
+    """float32 convolutions without TF32 inside the block, forward and
+    backward; the process-wide cuDNN flags are as before after it."""
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        yield
+
+
+class PoseNet(nn.Module):
+    """A `NetSpec` as an `nn.Module`: image NHWC -> net output NHWC float32.
+
+    trainable: the parameters take gradients (a trainer's net); a serving
+    net's do not, whatever mode its caller runs it in."""
+
+    def __init__(self, spec: NetSpec, params: Params,
+                 trainable: bool = False):
         super().__init__()
         self.spec = spec
         self.weights = nn.ParameterDict()
@@ -132,10 +187,25 @@ class PoseNet(nn.Module):
                 if val.ndim == 4:   # conv weights in the activations' layout
                     val = val.contiguous(memory_format=torch.channels_last)
                 self.weights[f"{layer.name}__{key}"] = nn.Parameter(
-                    val, requires_grad=False)
+                    val, requires_grad=trainable)
 
     def param(self, layer: str, key: str) -> torch.Tensor:
         return self.weights[f"{layer}__{key}"]
+
+    def params(self) -> Params:
+        """`{layer: {"w" | "b" | "slope": tensor}}` over the net's own
+        storage, detached (logical OIHW order, whatever the memory's)."""
+        out: Params = {}
+        for name, val in self.weights.items():
+            layer, key = name.rsplit("__", 1)
+            out.setdefault(layer, {})[key] = val.detach()
+        return out
+
+    def serving_view(self) -> "PoseNet":
+        """A net for serving over this net's parameter storage: nothing is
+        copied, nothing takes a gradient, and a later optimizer step on
+        this net shows in it."""
+        return PoseNet(self.spec, self.params())
 
     def forward(self, image: torch.Tensor,
                 compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -143,9 +213,7 @@ class PoseNet(nn.Module):
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, "
                              f"got {compute_dtype}")
-        cudnn = torch.backends.cudnn
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic, allow_tf32=False):
+        with full_f32_convs():
             return self._run(image, compute_dtype)
 
     def _run(self, image: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -18,7 +18,7 @@ from typing import Optional, Union
 import torch
 
 from openpose_tpu_torch import device as device_rule
-from openpose_tpu_torch.models import caffe_proto, graph
+from openpose_tpu_torch.models import caffe_proto, checkpoint, graph
 from openpose_tpu_torch.params import (
     POSE_MODEL_INFO, PoseModel, PoseModelInfo)
 
@@ -63,7 +63,9 @@ def resolve_caffemodel(caffemodel: Optional[str],
                        model_folder: Optional[str],
                        relative: str) -> Optional[str]:
     """Explicit `--caffemodel_path` wins; else look in the conventional
-    `--model_folder` layout; else None (random init)."""
+    `--model_folder` layout; else None (random init).  An explicit path
+    that ends in `.npz` names a trainer's checkpoint (`checkpoint.save`, or
+    the JAX package's): the way a trained net reaches `Wrapper`."""
     if caffemodel:
         return caffemodel
     if model_folder:
@@ -83,7 +85,9 @@ def _load(spec_name: str, seed: int,
         spec = caffe_proto.parse_prototxt(pathlib.Path(prototxt).read_text())
     else:
         spec = graph.load_spec(spec_name)
-    if caffemodel is not None:
+    if caffemodel is not None and caffemodel.endswith(".npz"):
+        params = checkpoint.load_npz(caffemodel)    # a trainer's checkpoint
+    elif caffemodel is not None:
         blobs = caffe_proto.parse_caffemodel(
             pathlib.Path(caffemodel).read_bytes())
         params = graph.convert_caffe_blobs(spec, blobs)

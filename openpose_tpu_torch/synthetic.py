@@ -1,4 +1,4 @@
-"""Synthetic inputs with known people, in numpy only.
+"""Synthetic inputs with known people: numpy, and one renderer in torch.
 
 * `make_targets`: a BODY-model net output that encodes given keypoints:
   Gaussian part maps, background, and unit-vector limb bands in the PAF
@@ -8,18 +8,26 @@
 * `random_people`: keypoints of standing people spread across a frame; with
   its template and `BODY25_DRAW_PAIRS` the port's own copy of what it needs
   of `openpose_tpu/scenes.py` (same numbers from the same seed).
+* `coco_ground_truth`: the COCO annotations of such people (the port's copy
+  of `openpose_tpu/scenes.py::coco_ground_truth`).
 * `render_scene_image`: a BGR frame of stick figures (disks at the joints,
   lines along the limbs) for driving the CNN path; a numpy stand-in for
-  `openpose_tpu.scenes.render_scene_image`, which needs OpenCV.
+  `openpose_tpu.scenes.render_scene_image`, which needs OpenCV.  It is the
+  port's training domain.
+* `render_scene_batch`: the same frames for a whole batch as torch ops on
+  a device (the trainer's scene iterator: the numpy renderer is a Python
+  loop over 49 strokes a person and cannot feed a card).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["make_targets", "random_people", "render_scene_image"]
+__all__ = ["make_targets", "random_people", "coco_ground_truth",
+           "render_scene_image", "render_scene_batch", "scene_background"]
 
 # Standing-person template for the 25 BODY_25 parts, unit height, origin at
 # the nose, x right / y down (part order: poseParameters.cpp:7-33).
@@ -59,6 +67,11 @@ BODY25_DRAW_PAIRS = [
     (22, 23), (11, 24)]
 
 
+# BODY_25 -> 17-keypoint COCO order (cocoJsonSaver.cpp:117-141 and
+# io/json_io._COCO_ORDER_BY_PARTS[25])
+COCO_ORDER_25 = [0, 16, 15, 18, 17, 5, 2, 6, 3, 7, 4, 12, 9, 13, 10, 14, 11]
+
+
 def random_people(rng: np.random.RandomState, n_people: int,
                   frame_hw: Tuple[int, int],
                   height_range: Tuple[float, float] = (180.0, 300.0),
@@ -93,6 +106,24 @@ def random_people(rng: np.random.RandomState, n_people: int,
         people[p, :, :2] = kp
         people[p, :, 2] = 1.0
     return people
+
+
+def coco_ground_truth(people: np.ndarray, image_id: int) -> List[Dict]:
+    """COCO annotation dicts (17-kp order, visibility 2, bbox area) for the
+    [n, 25, 3] keypoints of one frame."""
+    out = []
+    for person in people:
+        pts = person[COCO_ORDER_25]
+        xs, ys = pts[:, 0], pts[:, 1]
+        x0, y0 = float(xs.min()), float(ys.min())
+        bw, bh = float(xs.max() - x0), float(ys.max() - y0)
+        kp = []
+        for x, y in zip(xs, ys):
+            kp += [float(x), float(y), 2]
+        out.append({"image_id": int(image_id), "keypoints": kp,
+                    "num_keypoints": 17, "area": bw * bh,
+                    "bbox": [x0, y0, bw, bh]})
+    return out
 
 
 def make_targets(keypoints: np.ndarray, pairs: np.ndarray,
@@ -173,25 +204,104 @@ def _stroke(img: np.ndarray, p0: np.ndarray, p1: np.ndarray, radius: float,
     img[y_lo:y_hi, x_lo:x_hi][dist2 <= radius * radius] = color
 
 
+LIMB_RADIUS, JOINT_RADIUS = 1.0, 4.0
+
+
+def scene_background(frame_hw: Tuple[int, int],
+                     rng: Optional[np.random.RandomState] = None,
+                     background_noise: float = 8.0) -> np.ndarray:
+    """[H, W, 3] float32 background of a scene: dim noise around 24 drawn
+    from `rng` (one `normal` call of H x W x 3), black without one."""
+    h, w = frame_hw
+    img = np.zeros((h, w, 3), np.float32)
+    if rng is not None and background_noise > 0:
+        img[:] = np.clip(rng.normal(24, background_noise, (h, w, 3)), 0, 64)
+    return img
+
+
 def render_scene_image(people: np.ndarray, frame_hw: Tuple[int, int],
                        rng: Optional[np.random.RandomState] = None,
                        background_noise: float = 8.0) -> np.ndarray:
     """[H, W, 3] uint8 BGR image of [people, 25, 3] skeletons: limbs as
     2 px lines coloured by pair, joints as radius-4 disks coloured by part."""
-    h, w = frame_hw
-    img = np.zeros((h, w, 3), np.float32)
-    if rng is not None and background_noise > 0:
-        img[:] = np.clip(rng.normal(24, background_noise, (h, w, 3)), 0, 64)
+    img = scene_background(frame_hw, rng, background_noise)
     n_parts = people.shape[1] if people.size else 25
     for person in people:
         pts = person[:, :2].astype(np.float32)
         for li, (a, b) in enumerate(BODY25_DRAW_PAIRS):
             if a < n_parts and b < n_parts and min(person[a, 2],
                                                     person[b, 2]) > 0:
-                _stroke(img, pts[a], pts[b], 1.0,
+                _stroke(img, pts[a], pts[b], LIMB_RADIUS,
                         _hue_bgr(li, len(BODY25_DRAW_PAIRS), 0.55, 0.67))
         for part in range(n_parts):
             if person[part, 2] > 0:
-                _stroke(img, pts[part], pts[part], 4.0,
+                _stroke(img, pts[part], pts[part], JOINT_RADIUS,
                         _hue_bgr(part, n_parts))
     return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _stroke_table(n_parts: int):
+    """The strokes of one person in painting order (limbs in
+    `BODY25_DRAW_PAIRS` order, then joints): end parts a and b [S], radius
+    [S] and uint8 BGR colour [S, 3], as numpy arrays."""
+    limbs = [(li, a, b) for li, (a, b) in enumerate(BODY25_DRAW_PAIRS)
+             if a < n_parts and b < n_parts]
+    a = [a for _, a, _ in limbs] + list(range(n_parts))
+    b = [b for _, _, b in limbs] + list(range(n_parts))
+    radius = [LIMB_RADIUS] * len(limbs) + [JOINT_RADIUS] * n_parts
+    colors = [_hue_bgr(li, len(BODY25_DRAW_PAIRS), 0.55, 0.67)
+              for li, _, _ in limbs] \
+        + [_hue_bgr(part, n_parts) for part in range(n_parts)]
+    # as the numpy renderer stores them: float32 in the canvas, cut to uint8
+    colors = np.clip(np.asarray(colors).astype(np.float32), 0, 255)
+    return (np.asarray(a), np.asarray(b), np.asarray(radius, np.float32),
+            colors.astype(np.uint8))
+
+
+def render_scene_batch(people: np.ndarray,
+                       background: torch.Tensor) -> torch.Tensor:
+    """`render_scene_image` for a batch, as torch ops on `background`'s
+    device.  people [B, P, parts, 3] float32 on the host (score > 0 =
+    drawn; an empty slot is all zeros); background [B, H, W, 3] uint8
+    (`scene_background`, cut to uint8).  Returns [B, H, W, 3] uint8.
+
+    For one person at a time, the squared distance of every pixel to all of
+    that person's strokes at once; a pixel takes the colour of the last
+    stroke that covers it, which is what painting the strokes in order
+    leaves, and later people paint over earlier ones.  The arithmetic is
+    the numpy renderer's in float32, so the two agree but for a pixel whose
+    distance lies within rounding of a stroke's radius."""
+    device = background.device
+    b, h, w, _ = background.shape
+    n_parts = people.shape[2]
+    part_a, part_b, radius, colors = _stroke_table(n_parts)
+    idx_a = torch.from_numpy(part_a).to(device)
+    idx_b = torch.from_numpy(part_b).to(device)
+    r2 = torch.from_numpy(radius * radius).to(device)[None, :, None, None]
+    # colour 0 of the table is "no stroke"
+    table = torch.cat([torch.zeros((1, 3), dtype=torch.uint8),
+                       torch.from_numpy(colors)]).to(device)
+    order = torch.arange(1, len(part_a) + 1, device=device,
+                         dtype=torch.int16)[None, :, None, None]
+    ys = torch.arange(h, device=device, dtype=torch.float32)[None, None, :, None]
+    xs = torch.arange(w, device=device, dtype=torch.float32)[None, None, None, :]
+    people = np.asarray(people, np.float32)
+    used = np.nonzero((people[..., 2] > 0).any(axis=(0, 2)))[0]
+    slots = int(used.max()) + 1 if used.size else 0    # trailing empty slots
+    people = torch.from_numpy(people[:, :slots]).to(device)
+    img = background.clone()
+    for p in range(slots):
+        person = people[:, p]                               # [B, parts, 3]
+        p0, p1 = person[:, idx_a], person[:, idx_b]         # [B, S, 3]
+        drawn = (torch.minimum(p0[..., 2], p1[..., 2]) > 0)[..., None, None]
+        x0, y0 = p0[..., 0, None, None], p0[..., 1, None, None]
+        dx = p1[..., 0, None, None] - x0
+        dy = p1[..., 1, None, None] - y0
+        px, py = xs - x0, ys - y0
+        t = torch.clamp((px * dx + py * dy)
+                        / torch.clamp(dx * dx + dy * dy, min=1e-6), 0.0, 1.0)
+        dist2 = (px - t * dx) ** 2 + (py - t * dy) ** 2     # [B, S, H, W]
+        last = torch.where((dist2 <= r2) & drawn, order,
+                           torch.zeros_like(order)).amax(dim=1)   # [B, H, W]
+        img = torch.where((last > 0)[..., None], table[last.long()], img)
+    return img

@@ -44,14 +44,15 @@ ALLOWED_STRING = re.compile(r"openpose_tpu/ops/paf_pallas\.py:\d+")
 
 
 def test_every_module_imports_with_jax_and_the_jax_package_blocked():
-    """A fresh interpreter in which any import of `openpose_tpu`, `jax` or
-    `cv2` raises imports every module of the port (walking the package) and
+    """A fresh interpreter in which any import of `openpose_tpu`, `jax`,
+    `optax` or `cv2` raises imports every module of the port (walking the
+    package, the trainer and the accuracy harness included) and
     `chip_smoke.py`; only `render/render.py`, which draws with OpenCV, is
     imported after `cv2` is let through again."""
     script = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
-        blocked = {"openpose_tpu", "jax", "jaxlib", "cv2"}
+        blocked = {"openpose_tpu", "jax", "jaxlib", "optax", "cv2"}
 
         class Block(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
@@ -66,6 +67,8 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
                 openpose_tpu_torch.__path__, "openpose_tpu_torch.")]
         needs_cv2 = "openpose_tpu_torch.render.render"
         assert needs_cv2 in names
+        for new in ("train", "train_loop", "accuracy", "io.coco_eval"):
+            assert "openpose_tpu_torch." + new in names, new
         for name in names:
             if name != needs_cv2:
                 importlib.import_module(name)
@@ -79,7 +82,7 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.strip()) >= 45
+    assert int(proc.stdout.strip()) >= 49
 
 
 def _docstrings(tree):
@@ -122,15 +125,29 @@ def test_no_python_source_names_the_jax_package(path):
 
 
 def test_only_the_renderer_imports_opencv():
+    """`render/render.py` is the one module that imports OpenCV when it is
+    imported.  One function imports it when called: the trainer's
+    `coco_data_iterator`, which reads image files (the card's machine has no
+    OpenCV, and nothing that runs there calls it)."""
     importers = []
     for path in _python_sources():
-        for node in ast.walk(ast.parse(path.read_text())):
+        tree = ast.parse(path.read_text())
+        at_top = {id(n) for n in tree.body}
+        for node in ast.walk(tree):
             names = [a.name for a in node.names] \
                 if isinstance(node, ast.Import) else \
                 [node.module or ""] if isinstance(node, ast.ImportFrom) else []
             if any(n.split(".")[0] == "cv2" for n in names):
-                importers.append(str(path.relative_to(ROOT)))
-    assert sorted(set(importers)) == ["openpose_tpu_torch/render/render.py"]
+                importers.append((str(path.relative_to(ROOT)),
+                                  id(node) in at_top))
+    assert sorted(set(importers)) == [
+        ("openpose_tpu_torch/render/render.py", True),
+        ("openpose_tpu_torch/train_loop.py", False)]
+    tree = ast.parse((PORT / "train_loop.py").read_text())
+    inside = [n.name for n in tree.body if isinstance(n, ast.FunctionDef)
+              and any(isinstance(m, ast.Import)
+                      and m.names[0].name == "cv2" for m in ast.walk(n))]
+    assert inside == ["coco_data_iterator"]
 
 
 def _code(path, only=None):
@@ -153,7 +170,7 @@ def _code(path, only=None):
 
 @pytest.mark.parametrize("relative", [
     "utils/logging.py", "utils/native_build.py", "io/native_loader.py",
-    "runtime/pipeline.py", "render/render.py"])
+    "runtime/pipeline.py", "render/render.py", "io/coco_eval.py"])
 def test_copied_module_has_the_originals_code(relative):
     """The modules that need no device library are copies: the same code
     (docstrings aside) under the port's package name."""
@@ -169,10 +186,18 @@ def test_copied_module_has_the_originals_code(relative):
                       "group_rectangles"]),
     ("wrapper.py", ["PoseConfig", "FaceConfig", "HandConfig", "Datum"]),
     ("tracking/person_id.py", ["PersonEntry"]),
+    ("train_loop.py", ["coco_to_model_keypoints", "TrainConfig",
+                       "coco_data_iterator"]),
 ])
 def test_copied_host_helpers_have_the_originals_code(relative, names):
     assert _code(PORT / relative, names) \
         == _code(ROOT / "openpose_tpu" / relative, names)
+
+
+def test_ground_truth_helper_has_the_originals_code():
+    """`scenes.py`'s annotations live in the port's `synthetic.py`."""
+    assert _code(PORT / "synthetic.py", ["coco_ground_truth"]) \
+        == _code(ROOT / "openpose_tpu" / "scenes.py", ["coco_ground_truth"])
 
 
 def _method(path, cls, name):
