@@ -62,7 +62,16 @@ with a non-zero exit when it fails:
    checkpoint it wrote, loaded into a serving model, must answer bit for
    bit as the trained net; a short `accuracy.train_to_ap` at 184x328, and
    the fused kernel against its plain version on a held-out frame of the
-   net it trained (1 frame, 22x40 maps, that net's peaks).
+   net it trained (1 frame, 22x40 maps, that net's peaks);
+13. cli: the user entry points on the net `train_to_ap` trained, frames
+   reaching the CLI from memory (the card's machine has no OpenCV): the
+   CLI's `Wrapper` path on 16 held-out frames, its JSON bit-equal to
+   `Wrapper.process`, people found == placed on 14 or more; the CLI at its
+   defaults on 720x1280 frames; `--3d` over three views with cameras
+   written by `threed/camera.py`, and `reconstruct_array` on 8 people x 4
+   cameras on the card against the CPU and the truth; `pyopenpose` at
+   render_pose 0, `capi` and its C shim (built where the machine has
+   Python's headers), each bit-equal to the CLI.
 
 The kernel phase also holds the fused kernel to its plain version at the
 refinement's shape (8 crops of 368x368, thresholds 0.02 and 0.01).
@@ -82,9 +91,9 @@ of its bytes (each input read once, each output written once) over the
 card's memory rate and its float operations (counted from this run's peak
 counts and line lengths) over the card's float32 rate.  The line before the
 last is the kernel summary, the last line {"ok": true, "device": {...}}.  Details go to build/chip_smoke/chip_smoke.json.
-The default run took 360 s on one H100 80GB HBM3 at 700 W, the build
-included, and `--train-to-ap` 175 s (both in one call, timed apart); a
-slower host has taken 519 s for the default run.
+The default run took 504 s on one H100 80GB HBM3 at 700 W, the build and
+the cli phase included (360-519 s before that phase), and `--train-to-ap`
+175 s.
 """
 
 from __future__ import annotations
@@ -92,6 +101,7 @@ from __future__ import annotations
 import contextlib
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -1904,7 +1914,6 @@ def train_phase(device, image_size=(368, 368), batch=8, steps=30,
     parameters stay finite; (c) the checkpoint it wrote, loaded into a
     serving model, answers bit for bit as the trained net; (d) a short
     `accuracy.train_to_ap`."""
-    import shutil
     import torch
     from openpose_tpu_torch import accuracy, train_loop
     from openpose_tpu_torch.models import checkpoint, graph, zoo
@@ -1995,10 +2004,10 @@ def train_phase(device, image_size=(368, 368), batch=8, steps=30,
     # the evaluation's frames went through the fused kernel, one each
     out["launches"] = read_launches("train path", paf_cuda.paf_scores_fused)
     # and at that shape the kernel is held to its plain version
-    trained = zoo.load_pose_model(
-        caffemodel=str(ckpt_dir / "t2ap" / f"{info.name}_step{t2ap_steps}.npz"),
-        device=device)
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    # the checkpoint stays for `cli_phase`, which serves it and removes it
+    out["checkpoint"] = str(ckpt_dir / "t2ap"
+                            / f"{info.name}_step{t2ap_steps}.npz")
+    trained = zoo.load_pose_model(caffemodel=out["checkpoint"], device=device)
     out["kernel_on_trained_frame"] = trained_frame_kernel_check(
         device, trained, t2ap_size)
     return out
@@ -2100,6 +2109,423 @@ def train_to_ap_run(device, steps=1500, image_size=(184, 328), batch=8,
     return out
 
 
+@contextlib.contextmanager
+def frames_from_memory(frames, names):
+    """For the length of the block, `producers.create_producer` (which the
+    CLI looks up when it runs) makes a producer that yields `frames` from
+    memory under `names`, with the CLI's windowing, split and cameras: the
+    card's machine has no OpenCV to read files."""
+    from openpose_tpu_torch.io import producers
+
+    class MemoryProducer(producers.Producer):
+        def _raw_frames(self):
+            yield from zip(frames, names)
+
+    create = producers.create_producer
+    producers.create_producer = \
+        lambda **kwargs: MemoryProducer(kwargs["config"])
+    try:
+        yield
+    finally:
+        producers.create_producer = create
+
+
+def run_cli(argv, device):
+    """`cli.main(argv)` on `device`; (seconds, printed text).  Fails unless
+    it returns 0."""
+    import io
+    from openpose_tpu_torch import cli
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv, device=device)
+    seconds = time.perf_counter() - t0
+    assert rc == 0, (argv, rc, out.getvalue())
+    return seconds, out.getvalue()
+
+
+def cli_figures(text):
+    """The CLI's own frames/s line and the last report of each profiler
+    key, from what it printed."""
+    import re
+    fps = re.findall(r"openpose_tpu_torch: (\d+) frames in [\d.]+s "
+                     r"\(([\d.]+) fps\)", text)
+    stages = {key: float(ms) for key, ms, _ in re.findall(
+        r"\[profiler\] (\w+): ([\d.]+) ms avg over (\d+)", text)}
+    return {"frames": int(fps[-1][0]), "fps": float(fps[-1][1]),
+            "stage_ms": stages}
+
+
+def write_model_folder(npz, folder):
+    """A trainer's checkpoint as the caffemodel of BODY_25 under a model
+    folder (the reference's layout), the one way `capi`'s config names
+    weights."""
+    import numpy as np
+    from openpose_tpu_torch.models import caffe_proto, checkpoint, zoo
+    from openpose_tpu_torch.params import PoseModel
+    layers = {}
+    for name, p in checkpoint.to_jax_params(checkpoint.load_npz(npz)).items():
+        layers[name] = ([np.asarray(p["w"]).transpose(3, 2, 0, 1), p["b"]]
+                        if "w" in p else [p["slope"]])
+    path = pathlib.Path(folder) / zoo.CAFFEMODEL_PATHS[PoseModel.BODY_25]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(caffe_proto.serialize_caffemodel(layers))
+    return str(folder)
+
+
+def arc_rig(n_cams, radius=3.0, focal=800.0, center=(320.0, 240.0)):
+    """[V, 3, 4] K[R|t] of cameras on an arc looking at the origin (the
+    JAX suite's 3-D rig)."""
+    import numpy as np
+    k = np.array([[focal, 0, center[0]], [0, focal, center[1]], [0, 0, 1]])
+    cams = []
+    for i in range(n_cams):
+        angle = (i - (n_cams - 1) / 2) * 0.35
+        c = np.array([radius * np.sin(angle), 0.0, -radius * np.cos(angle)])
+        z = -c / np.linalg.norm(c)
+        x = np.cross([0, 1, 0], z)
+        x /= np.linalg.norm(x)
+        r = np.stack([x, np.cross(z, x), z])
+        cams.append(k @ np.hstack([r, (-r @ c)[:, None]]))
+    return np.stack(cams).astype(np.float32)
+
+
+def rig_views(rng, cams, people, parts, noise=0.5):
+    """Random 3-D people seen by `cams` with `noise` px of Gaussian noise:
+    (views [V x [people, parts, 3]], truth [people, parts, 3])."""
+    import numpy as np
+    truth = rng.uniform(-0.5, 0.5, (people, parts, 3))
+    homog = np.concatenate([truth, np.ones((people, parts, 1))], -1)
+    views = []
+    for cam in cams:
+        proj = homog @ cam.T
+        pix = proj[..., :2] / proj[..., 2:] + rng.normal(0, noise,
+                                                        (people, parts, 2))
+        score = rng.uniform(0.5, 1.0, (people, parts, 1))
+        views.append(np.concatenate([pix, score], -1).astype(np.float32))
+    return views, truth
+
+
+def capi_shim_check(device, model_folder, frames, want):
+    """The port's C shim through ctypes, when this interpreter has the
+    headers and shared library to embed: built with g++ (a failed build
+    fails the phase), then `op_create` / `op_process` over `frames`, held
+    bit for bit to `want`.  None when the check is not made."""
+    import ctypes
+    import sysconfig
+    import numpy as np
+    from openpose_tpu_torch.utils import native_build
+    header = pathlib.Path(sysconfig.get_paths()["include"]) / "Python.h"
+    libpython = pathlib.Path(sysconfig.get_config_var("LIBDIR")) / \
+        sysconfig.get_config_var("LDLIBRARY")
+    ready = header.exists() and libpython.exists() \
+        and bool(sysconfig.get_config_var("Py_ENABLE_SHARED"))
+    log(f"cli (e) C shim: {header} exists {header.exists()}; {libpython} "
+        f"(shared {bool(sysconfig.get_config_var('Py_ENABLE_SHARED'))}) "
+        f"exists {libpython.exists()}: "
+        f"{'building the shim' if ready else 'the shim is not built'}")
+    if not ready:
+        return None
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(str(native_build.build_capi()))
+    build_s = time.perf_counter() - t0
+    lib.op_create.restype = ctypes.c_void_p
+    lib.op_create.argtypes = [ctypes.c_char_p]
+    lib.op_process.restype = ctypes.c_int
+    lib.op_process.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_ubyte), ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.op_last_error.restype = ctypes.c_char_p
+    lib.op_destroy.argtypes = [ctypes.c_void_p]
+    lib.op_free_floats.argtypes = [ctypes.POINTER(ctypes.c_float)]
+    handle = lib.op_create(json.dumps({
+        "model_folder": model_folder, "net_resolution": "-1x176",
+        "number_people_max": 4, "device": str(device)}).encode())
+    assert handle, lib.op_last_error().decode()
+    equal, t0 = 0, time.perf_counter()
+    try:
+        for frame, datum in zip(frames, want):
+            image = np.ascontiguousarray(frame)
+            kp = ctypes.POINTER(ctypes.c_float)()
+            people, parts = ctypes.c_int(), ctypes.c_int()
+            rc = lib.op_process(
+                handle, image.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
+                image.shape[0], image.shape[1], ctypes.byref(kp),
+                ctypes.byref(people), ctypes.byref(parts))
+            assert rc == 0, lib.op_last_error().decode()
+            got = np.zeros((0, 25, 3), np.float32)
+            if people.value:
+                got = np.ctypeslib.as_array(
+                    kp, shape=(people.value, parts.value, 3)).copy()
+                lib.op_free_floats(kp)
+            equal += int(np.array_equal(got, datum.pose_keypoints))
+    finally:
+        lib.op_destroy(handle)
+    out = {"build_s": build_s,
+           "ms_per_frame": (time.perf_counter() - t0) * 1e3 / len(frames),
+           "frames_bit_equal": equal}
+    log(f"cli (e) C shim over the frames of (a): {json.dumps(out)}")
+    assert equal == len(frames), out
+    return out
+
+
+def cli_phase(device, checkpoint, n_frames=16, image_size=(184, 328),
+              default_frames=8, default_hw=(720, 1280), rig_iters=10):
+    """The user entry points on the card, over the net `train_phase`
+    trained (`checkpoint`), frames reaching the CLI from memory:
+    (a) the CLI's `Wrapper` path on `n_frames` held-out scenes of 1-3
+    people: every JSON it writes equals `Wrapper.process`'s on the same
+    frame, bit for bit, and people found == placed on all but two frames;
+    (b) the CLI at its own defaults (random weights, -1x368, bf16) on
+    720x1280 frames; (c) `--3d` over three views with cameras written by
+    `threed/camera.py`, and `reconstruct_array` on a synthetic rig of 8
+    people x 25 parts x 4 cameras on the card against the CPU and the truth;
+    (d) `pyopenpose.WrapperPython` at render_pose 0 and (e) `capi` (and its
+    C shim where it can be built) over (a)'s frames, bit-equal to (a)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from openpose_tpu_torch import accuracy, capi, pyopenpose
+    from openpose_tpu_torch.io import json_io
+    from openpose_tpu_torch.ops import paf_cuda
+    from openpose_tpu_torch.params import PoseModel
+    from openpose_tpu_torch.threed import camera, triangulation
+    from openpose_tpu_torch.wrapper import PoseConfig, Wrapper
+
+    work = pathlib.Path(tempfile.mkdtemp(prefix="cli_phase_", dir=OUT_DIR))
+    scenes = accuracy.held_out_scenes(n_frames, image_size, (1, 3), seed=5)
+    frames = [img for _, img in scenes]
+    names = [f"scene_{i:012d}" for i in range(n_frames)]
+    out = {"frames": n_frames, "image_size": list(image_size)}
+    try:
+        # (a) the reference: Wrapper.process with the CLI's config (no
+        # image directory: no dynamic width clip); it also warms cuDNN
+        reference = Wrapper(PoseConfig(
+            model=PoseModel.BODY_25, net_resolution=(-1, 176),
+            net_resolution_dynamic=-1.0, caffemodel=checkpoint,
+            number_people_max=4), device=device)
+        want = [reference.process(f, i, n)
+                for i, (f, n) in enumerate(zip(frames, names))]
+        expect = work / "expect"
+        expect.mkdir()
+        for d in want:
+            json_io.save_people_json(str(expect / f"{d.name}_keypoints.json"),
+                                     pose_keypoints=d.pose_keypoints)
+        argv = ["--caffemodel_path", checkpoint, "--net_resolution=-1x176",
+                "--number_people_max", "4", "--write_json",
+                str(work / "json"), "--write_keypoint", str(work / "kp"),
+                "--write_keypoint_format", "json", "--write_coco_json",
+                str(work / "coco.json"), "--render_pose", "0",
+                "--profile_speed", "8"]
+        reset_launches()
+        with frames_from_memory(frames, names):
+            seconds, text = run_cli(argv, device)
+        fused = paf_cuda.paf_scores_fused.launches
+        written = sorted((work / "json").iterdir())
+        assert [p.name for p in written] == sorted(
+            p.name for p in expect.iterdir()), written
+        equal = sum(p.read_bytes() == (expect / p.name).read_bytes()
+                    for p in written)
+        people = [len(d.pose_keypoints) for d in want]
+        placed = [len(p) for p, _ in scenes]
+        matched = sum(a == b for a, b in zip(people, placed))
+        coco = json.loads((work / "coco.json").read_text())
+        out["a"] = dict(cli_figures(text), seconds_with_load=seconds,
+                        json_bit_equal=equal, people=people, placed=placed,
+                        frames_people_match=matched,
+                        keypoint_files=len(list((work / "kp").iterdir())),
+                        coco_detections=len(coco),
+                        fused_launches_per_frame=fused / n_frames)
+        log(f"cli (a) Wrapper path, {n_frames} held-out frames at "
+            f"{image_size}, -1x176, bf16, the trained net: "
+            + json.dumps(out["a"]))
+        assert equal == n_frames, out["a"]
+        assert matched >= n_frames - 2, out["a"]
+        assert out["a"]["keypoint_files"] == n_frames
+        assert len(coco) == sum(people)
+
+        # (d) pyopenpose at render_pose 0 over the same frames
+        op = pyopenpose.WrapperPython(device=device)
+        op.configure({"caffemodel_path": checkpoint,
+                      "net_resolution": "-1x176", "number_people_max": 4,
+                      "render_pose": 0})
+        op.start()
+
+        def datums():
+            made = []
+            for i, (f, n) in enumerate(zip(frames, names)):
+                d = pyopenpose.Datum()
+                d.id, d.name, d.cvInputData = i, n, f
+                made.append(d)
+            return made
+        direct = datums()
+        t0 = time.perf_counter()
+        for d in direct:
+            op.emplaceAndPop([d])
+        ms = (time.perf_counter() - t0) * 1e3 / n_frames
+        queued = datums()
+        for d in queued:
+            op.waitAndEmplace([d])
+        popped = []
+        while True:
+            got = []
+            if not op.waitAndPop(got):
+                break
+            popped += got
+        out["d"] = {
+            "ms_per_frame": ms,
+            "bit_equal": sum(np.array_equal(d.poseKeypoints, w.pose_keypoints)
+                             for d, w in zip(direct, want)),
+            "queue_order_kept": [d.name for d in popped] == names,
+            "queue_bit_equal": sum(
+                np.array_equal(d.poseKeypoints, w.pose_keypoints)
+                for d, w in zip(popped, want)),
+            "output_is_input": all(d.cvOutputData is d.cvInputData
+                                   for d in direct)}
+        log(f"cli (d) pyopenpose.WrapperPython, render_pose 0: "
+            + json.dumps(out["d"]))
+        assert out["d"]["bit_equal"] == out["d"]["queue_bit_equal"] \
+            == n_frames and out["d"]["queue_order_kept"] \
+            and out["d"]["output_is_input"], out["d"]
+
+        # (e) capi over the same frames, the trained net under a model folder
+        folder = write_model_folder(checkpoint, work / "models")
+        handle = capi.create(json.dumps({
+            "model_folder": folder, "net_resolution": "-1x176",
+            "number_people_max": 4, "device": str(device)}))
+        try:
+            t0 = time.perf_counter()
+            answers = [capi.process(handle, f.tobytes(), *f.shape[:2], i)
+                       for i, f in enumerate(frames)]
+            ms = (time.perf_counter() - t0) * 1e3 / n_frames
+        finally:
+            capi.destroy(handle)
+        equal = sum(np.array_equal(
+            np.frombuffer(kp, np.float32).reshape(people_n, parts or 25, 3),
+            w.pose_keypoints) for (kp, people_n, parts), w in zip(answers,
+                                                                  want))
+        out["e"] = {"ms_per_frame": ms, "bit_equal": equal,
+                    "shim": capi_shim_check(device, folder, frames, want)}
+        log(f"cli (e) capi.create / process: {json.dumps(out['e'])}")
+        assert equal == n_frames, out["e"]
+
+        # (c) --3d over three views of one rig: cameras 0.1 m apart along
+        # x at the people's depth of 4 m, so view v is view 0 moved by
+        # -focal * 0.1 * v / 4 px
+        focal, depth, baseline = 300.0, 4.0, 0.1
+        intrinsics = np.array([[focal, 0, image_size[1] / 2],
+                               [0, focal, image_size[0] / 2], [0, 0, 1]])
+        cam_dir = work / "cams"
+        cam_dir.mkdir()
+        for v in range(3):
+            extrinsics = np.hstack([np.eye(3), [[-baseline * v], [0], [0]]])
+            camera.write_camera_xml(
+                str(cam_dir / f"cam{v}.xml"), camera.CameraParameters(
+                    f"cam{v}", extrinsics, intrinsics, np.zeros(8)))
+        stacked = []
+        for people, _ in scenes[:4]:
+            views = []
+            for v in range(3):
+                moved = people.copy()
+                moved[..., 0] -= focal * baseline * v / depth
+                views.append(synthetic_frame(moved, image_size))
+            stacked.append(np.concatenate(views, axis=1))
+        fused_before = paf_cuda.paf_scores_fused.launches
+        with frames_from_memory(stacked, names[:4]):
+            seconds, text = run_cli(
+                ["--caffemodel_path", checkpoint, "--net_resolution=-1x176",
+                 "--3d", "--num_views", "3", "--camera_parameter_path",
+                 str(cam_dir), "--write_json", str(work / "json3d"),
+                 "--render_pose", "0"], device)
+        shapes, depths = [], []
+        for path in sorted((work / "json3d").iterdir()):
+            for person in json.loads(path.read_text())["people"]:
+                kp3 = np.asarray(person["pose_keypoints_3d"]).reshape(-1, 4)
+                shapes.append(kp3.shape)
+                depths += kp3[kp3[:, 3] > 0, 2].tolist()
+        out["c"] = dict(cli_figures(text), people_3d=len(shapes),
+                        fused_launches_per_frame=(
+                            paf_cuda.paf_scores_fused.launches
+                            - fused_before) / 4,
+                        points_kept=len(depths),
+                        median_depth_m=float(np.median(depths))
+                        if depths else None)
+        log(f"cli (c) --3d --num_views 3 over 4 frames of 3 x {image_size}: "
+            + json.dumps(out["c"]))
+        assert len(list((work / "json3d").iterdir())) == 4
+        assert shapes and all(s == (25, 4) for s in shapes), shapes
+        assert np.isfinite(depths).all()
+
+        # (c) reconstruct_array on ROADMAP's 3-D row: 8 people, 25 parts,
+        # 4 cameras, 0.5 px noise; the card against the CPU and the truth
+        rng = np.random.RandomState(61)
+        cams = arc_rig(4)
+        views, truth = rig_views(rng, cams, 8, 25)
+        sizes = [(640, 480)] * 4
+        call = lambda dev: triangulation.reconstruct_array(
+            views, cams, sizes, device=dev)
+        on_card, on_cpu = call(device), call("cpu")
+        ok = on_card[..., 3] > 0
+        rig = {
+            "ok_equal": bool(np.array_equal(ok, on_cpu[..., 3] > 0)),
+            "ok_share": float(ok.mean()),
+            "max_abs_diff_to_cpu": float(np.abs(on_card - on_cpu).max()),
+            "median_err_to_truth": float(np.median(np.linalg.norm(
+                on_card[..., :3][ok] - truth[ok], axis=-1))),
+            "card_ms": host_ms(lambda: call(device), rig_iters),
+            "cpu_ms": host_ms(lambda: call("cpu"), rig_iters)}
+        trace = device_busy(lambda: call(device), 3) \
+            if device.type == "cuda" else None
+        if trace is not None:
+            rig["device_launches_per_call"] = \
+                trace["device_launches_per_call"]
+            rig["device_ms_per_call"] = trace["device_ms_per_call"]
+            rig["busy_share"] = trace["busy_share"]
+        out["c"]["rig"] = rig
+        log("cli (c) reconstruct_array, 8 people x 25 parts x 4 cameras, "
+            "0.5 px noise: " + json.dumps(rig))
+        assert rig["ok_equal"] and rig["max_abs_diff_to_cpu"] <= 1e-3 \
+            and rig["median_err_to_truth"] < 0.02, rig
+
+        # (b) the CLI at its own defaults: random weights, -1x368, bf16
+        rng = np.random.RandomState(71)
+        big = list(scene_frames(rng, default_frames, default_hw))
+        argv = ["--write_json", str(work / "json_default")]
+        with frames_from_memory(big, names[:default_frames]):
+            run_cli(argv + ["--max_frames", "2"], device)       # warm-up
+            fused_before = paf_cuda.paf_scores_fused.launches
+            seconds, text = run_cli(argv, device)
+            fused_one = paf_cuda.paf_scores_fused.launches - fused_before
+            trace = device_busy(lambda: run_cli(argv, device), 1) \
+                if device.type == "cuda" else None
+        files = list((work / "json_default").iterdir())
+        out["b"] = dict(cli_figures(text), seconds_with_load=seconds,
+                        fused_launches_per_frame=fused_one / default_frames,
+                        people=[len(json.loads(p.read_text())["people"])
+                                for p in sorted(files)])
+        if trace is not None:
+            out["b"]["trace_whole_call"] = trace
+        log(f"cli (b) the CLI at its defaults, {default_frames} frames of "
+            f"{default_hw}, random weights: " + json.dumps(out["b"]))
+        assert len(files) == default_frames
+        out["launches"] = read_launches("cli path",
+                                        paf_cuda.paf_scores_fused)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def synthetic_frame(people, image_size, seed=7):
+    """One scene of `people` drawn by the numpy renderer, its background
+    from a fixed seed (so that views of one rig differ only by the
+    people's shift)."""
+    import numpy as np
+    from openpose_tpu_torch import synthetic
+    return synthetic.render_scene_image(people, image_size,
+                                        np.random.RandomState(seed))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2144,6 +2570,11 @@ def main() -> int:
     report["runner"] = runner_phase(device, model)
     report["accuracy"] = accuracy_phase(device, model)
     report["train"] = train_phase(device)
+    try:
+        report["cli"] = cli_phase(device, report["train"]["checkpoint"])
+    finally:
+        shutil.rmtree(pathlib.Path(report["train"]["checkpoint"]).parent,
+                      ignore_errors=True)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -2158,7 +2589,7 @@ def main() -> int:
         "replaces": "openpose_tpu/ops/paf_pallas.py:286",
         "launches": sum(report[phase]["launches"]["paf_scores_fused"]
                         for phase in ("main_path", "whole_body", "wrapper",
-                                      "runner", "accuracy", "train")),
+                                      "runner", "accuracy", "train", "cli")),
         "max_abs_err": max(kernel["max_abs_err"], report["main_path"][
             "breakdown"]["paf_main_path_max_abs_err"], report["accuracy"][
             "kernel_on_loop_batch"]["max_abs_err"], report["train"][

@@ -46,9 +46,10 @@ ALLOWED_STRING = re.compile(r"openpose_tpu/ops/paf_pallas\.py:\d+")
 def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     """A fresh interpreter in which any import of `openpose_tpu`, `jax`,
     `optax` or `cv2` raises imports every module of the port (walking the
-    package, the trainer and the accuracy harness included) and
-    `chip_smoke.py`; only `render/render.py`, which draws with OpenCV, is
-    imported after `cv2` is let through again."""
+    package, the trainer, the accuracy harness, the entry points and what
+    they drive included) and `chip_smoke.py`; only `render/render.py`,
+    which draws with OpenCV, is imported after `cv2` is let through
+    again."""
     script = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
@@ -67,7 +68,10 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
                 openpose_tpu_torch.__path__, "openpose_tpu_torch.")]
         needs_cv2 = "openpose_tpu_torch.render.render"
         assert needs_cv2 in names
-        for new in ("train", "train_loop", "accuracy", "io.coco_eval"):
+        for new in ("train", "train_loop", "accuracy", "io.coco_eval",
+                    "cli", "pyopenpose", "capi", "io.producers",
+                    "io.savers", "io.bvh", "render.heatmaps", "render.gui",
+                    "render.gui3d", "threed.camera", "threed.triangulation"):
             assert "openpose_tpu_torch." + new in names, new
         for name in names:
             if name != needs_cv2:
@@ -82,7 +86,7 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.strip()) >= 49
+    assert int(proc.stdout.strip()) >= 61
 
 
 def _docstrings(tree):
@@ -126,9 +130,11 @@ def test_no_python_source_names_the_jax_package(path):
 
 def test_only_the_renderer_imports_opencv():
     """`render/render.py` is the one module that imports OpenCV when it is
-    imported.  One function imports it when called: the trainer's
-    `coco_data_iterator`, which reads image files (the card's machine has no
-    OpenCV, and nothing that runs there calls it)."""
+    imported.  Other modules import it inside the functions that read or
+    write image and video files, draw, or show a window, and only there:
+    the trainer's `coco_data_iterator`, the producers and savers, the
+    heatmap overlays, the GUI and the CLI (the card's machine has no
+    OpenCV, and what runs there calls none of them)."""
     importers = []
     for path in _python_sources():
         tree = ast.parse(path.read_text())
@@ -141,6 +147,11 @@ def test_only_the_renderer_imports_opencv():
                 importers.append((str(path.relative_to(ROOT)),
                                   id(node) in at_top))
     assert sorted(set(importers)) == [
+        ("openpose_tpu_torch/cli.py", False),
+        ("openpose_tpu_torch/io/producers.py", False),
+        ("openpose_tpu_torch/io/savers.py", False),
+        ("openpose_tpu_torch/render/gui.py", False),
+        ("openpose_tpu_torch/render/heatmaps.py", False),
         ("openpose_tpu_torch/render/render.py", True),
         ("openpose_tpu_torch/train_loop.py", False)]
     tree = ast.parse((PORT / "train_loop.py").read_text())
@@ -150,11 +161,21 @@ def test_only_the_renderer_imports_opencv():
     assert inside == ["coco_data_iterator"]
 
 
-def _code(path, only=None):
+def _top_level_names(node):
+    if isinstance(node, (ast.Assign, ast.AnnAssign)):
+        targets = node.targets if isinstance(node, ast.Assign) \
+            else [node.target]
+        return {t.id for t in targets if isinstance(t, ast.Name)}
+    return {getattr(node, "name", None)}
+
+
+def _code(path, only=None, drop=()):
     """The file's code as an AST dump without docstrings, with the JAX
     package's name replaced by the port's; only: the top-level names to
-    keep."""
+    keep; drop: top-level names (functions, classes, constants) to leave
+    out."""
     tree = ast.parse(JAX_NAME.sub("openpose_tpu_torch", path.read_text()))
+    tree.body = [n for n in tree.body if not _top_level_names(n) & set(drop)]
     for node in ast.walk(tree):
         if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef)) \
                 and node.body and isinstance(node.body[0], ast.Expr) \
@@ -168,14 +189,26 @@ def _code(path, only=None):
     return ast.dump(tree)
 
 
+# what the port adds to a copied module: the build of its own C shim
+PORT_ADDITIONS = {"utils/native_build.py": ("CAPI_SOURCE", "build_capi")}
+
+
 @pytest.mark.parametrize("relative", [
     "utils/logging.py", "utils/native_build.py", "io/native_loader.py",
-    "runtime/pipeline.py", "render/render.py", "io/coco_eval.py"])
+    "runtime/pipeline.py", "render/render.py", "io/coco_eval.py",
+    "threed/camera.py", "io/bvh.py", "render/gui.py", "render/gui3d.py"])
 def test_copied_module_has_the_originals_code(relative):
     """The modules that need no device library are copies: the same code
-    (docstrings aside) under the port's package name."""
-    assert _code(PORT / relative) \
+    (docstrings aside) under the port's package name, plus what
+    `PORT_ADDITIONS` names.  `io/producers.py`, `io/savers.py` and
+    `render/heatmaps.py` import OpenCV inside their functions instead, and
+    `tests/test_torch_io.py` holds them by what they do."""
+    drop = PORT_ADDITIONS.get(relative, ())
+    assert _code(PORT / relative, drop=drop) \
         == _code(ROOT / "openpose_tpu" / relative)
+    names = set().union(*map(_top_level_names,
+                             ast.parse((PORT / relative).read_text()).body))
+    assert set(drop) <= names
 
 
 @pytest.mark.parametrize("relative,names", [
