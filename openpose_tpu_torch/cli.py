@@ -276,12 +276,14 @@ def _cli_device(args, device=None):
     """--num_gpu/--num_gpu_start -> the one device this run uses
     (flags.hpp:69-71).  `device`, a caller's keyword, wins; else
     --num_gpu_start k picks cuda:k; else None (the card, `device.resolve`).
-    More than one GPU needs the port of `parallel/mesh.py`, not done yet."""
+    More than one GPU needs the mesh (`parallel/mesh.py`) wired into the
+    CLI, the port's last slice."""
     if args.num_gpu > 1:
         raise SystemExit(
             f"--num_gpu {args.num_gpu}: multi-GPU runs are not ported yet "
-            "(parallel/mesh.py); use --num_gpu 1 with --num_gpu_start to "
-            "pick the GPU")
+            "(parallel/mesh.py is; wiring it into the CLI is the last slice, "
+            "ROADMAP Queue 1 item 7); use --num_gpu 1 with --num_gpu_start "
+            "to pick the GPU")
     if device is not None:
         return torch.device(device)
     if args.num_gpu_start == 0:

@@ -7,7 +7,8 @@ ImageSaver, VideoSaver (imageSaver.cpp, videoSaver.cpp), KeypointSaver
 
 Counterpart of `openpose_tpu/io/savers.py`, the same code with OpenCV
 imported inside the functions that call it: keypoint JSON, raw float
-heatmaps and UDP need no OpenCV.
+heatmaps and UDP need no OpenCV.  One deliberate difference: a yml or xml
+keypoint file takes a frame with no people (the original raises on it).
 """
 
 from __future__ import annotations
@@ -109,8 +110,10 @@ class KeypointSaver:
             fs = cv2.FileStorage(str(path), cv2.FILE_STORAGE_WRITE)
             for i, arr in enumerate(keypoints):
                 arr = np.asarray(arr, np.float32)
-                fs.write(f"{key}_{i}", arr.reshape(arr.shape[0], -1)
-                         if arr.ndim == 3 else arr)
+                # a frame with no people is a (0, parts * 3) matrix
+                fs.write(f"{key}_{i}", arr.reshape(
+                    arr.shape[0], arr.shape[1] * arr.shape[2])
+                    if arr.ndim == 3 else arr)
             fs.release()
         return str(path)
 

@@ -113,7 +113,8 @@ def _apply_matrices(x: torch.Tensor, mh: torch.Tensor,
 def _require_full_f32(x: torch.Tensor) -> None:
     if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
-            "the heatmap path needs full float32 matmuls: set "
+            "this path (the heatmap path, bundle adjustment) needs full "
+            "float32 matmuls: set "
             "torch.backends.cuda.matmul.allow_tf32 = False")
 
 

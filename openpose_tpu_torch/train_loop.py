@@ -5,7 +5,8 @@ objective): data pipelines that turn COCO person-keypoint annotations or
 rendered synthetic scenes into (image, keypoint) batches, the loop, and
 periodic `.npz` checkpoints in the format both packages read
 (`models/checkpoint.py`).  One device: `TrainConfig.model_parallel` other
-than 1 needs the multi-GPU mesh, which is ROADMAP Queue 1 item 14.
+than 1 needs the mesh (`parallel/mesh.py`) wired into the trainer, the
+port's last slice (ROADMAP Queue 1 item 7).
 
 Throughput figures use the 3x-forward convention (forward, gradient of the
 parameters, gradient of the activations: three times the forward's
@@ -232,7 +233,8 @@ class Trainer:
         if config.model_parallel != 1:
             raise NotImplementedError(
                 f"model_parallel={config.model_parallel}: the port trains on "
-                "one device; the multi-GPU mesh is ROADMAP Queue 1 item 14")
+                "one device; wiring the mesh (parallel/mesh.py) into the "
+                "trainer is the last slice, ROADMAP Queue 1 item 7")
         self.config = config
         self.device = device
         self.info = POSE_MODEL_INFO[config.model]

@@ -150,8 +150,11 @@ def _save_both(tmp_path, make, call):
 @pytest.mark.parametrize("file_format", ["json", "yml", "xml"])
 def test_keypoint_saver_writes_equal_files(tmp_path, file_format):
     rng = np.random.RandomState(2)
-    # an empty [0, 25, 3] array goes to JSON only: both FileStorage writers
-    # raise on it (`arr.reshape(0, -1)`)
+    # an empty [0, 25, 3] array goes to JSON only: the original's
+    # FileStorage writer raises on it (`arr.reshape(0, -1)`).  That is the
+    # one deliberate difference of the port's copy, which writes a frame
+    # with no people as a (0, 75) matrix
+    # (`test_keypoint_saver_writes_a_frame_with_no_people`)
     arrays = [rng.rand(3, 25, 3).astype(np.float32),
               rng.rand(1 if file_format != "json" else 0, 25, 3)
               .astype(np.float32)]
@@ -166,6 +169,31 @@ def test_keypoint_saver_writes_equal_files(tmp_path, file_format):
         assert data["pose_0"]["sizes"] == [3, 25, 3]
     with pytest.raises(ValueError):
         savers.KeypointSaver(str(tmp_path / "bad"), "csv")
+
+
+@pytest.mark.parametrize("file_format", ["json", "yml", "xml"])
+def test_keypoint_saver_writes_a_frame_with_no_people(tmp_path, file_format):
+    """A frame with no people, beside one with two, is written and read
+    back in every format; the original's yml and xml writers raise on it."""
+    empty = np.zeros((0, 25, 3), np.float32)
+    two = np.random.RandomState(5).rand(2, 25, 3).astype(np.float32)
+    path = savers.KeypointSaver(str(tmp_path / "mine"), file_format).save(
+        [empty, two], "frame_000", "pose")
+    if file_format == "json":
+        data = json.loads(open(path).read())
+        assert data["pose_0"] == {"sizes": [0, 25, 3], "data": []}
+        assert data["pose_1"]["sizes"] == [2, 25, 3]
+        return
+    fs = cv2.FileStorage(path, cv2.FILE_STORAGE_READ)
+    node = fs.getNode("pose_0")
+    assert (node.getNode("rows").real(), node.getNode("cols").real()) \
+        == (0, 75)
+    np.testing.assert_array_equal(fs.getNode("pose_1").mat(),
+                                  two.reshape(2, 75))
+    fs.release()
+    with pytest.raises(ValueError):
+        jsavers.KeypointSaver(str(tmp_path / "theirs"), file_format).save(
+            [empty], "frame_000", "pose")
 
 
 @pytest.mark.parametrize("image_format", ["float", "png"])

@@ -71,7 +71,10 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
         for new in ("train", "train_loop", "accuracy", "io.coco_eval",
                     "cli", "pyopenpose", "capi", "io.producers",
                     "io.savers", "io.bvh", "render.heatmaps", "render.gui",
-                    "render.gui3d", "threed.camera", "threed.triangulation"):
+                    "render.gui3d", "threed.camera", "threed.triangulation",
+                    "threed.bundle_adjustment", "parallel.mesh",
+                    "accuracy3d", "threed.calibration", "threed.visualsfm",
+                    "calibration_cli"):
             assert "openpose_tpu_torch." + new in names, new
         for name in names:
             if name != needs_cv2:
@@ -134,7 +137,9 @@ def test_only_the_renderer_imports_opencv():
     write image and video files, draw, or show a window, and only there:
     the trainer's `coco_data_iterator`, the producers and savers, the
     heatmap overlays, the GUI and the CLI (the card's machine has no
-    OpenCV, and what runs there calls none of them)."""
+    OpenCV, and what runs there calls none of them).  The calibration
+    toolbox gets it from `threed/calibration.py::opencv`, which names
+    OpenCV where it is missing."""
     importers = []
     for path in _python_sources():
         tree = ast.parse(path.read_text())
@@ -153,6 +158,7 @@ def test_only_the_renderer_imports_opencv():
         ("openpose_tpu_torch/render/gui.py", False),
         ("openpose_tpu_torch/render/heatmaps.py", False),
         ("openpose_tpu_torch/render/render.py", True),
+        ("openpose_tpu_torch/threed/calibration.py", False),
         ("openpose_tpu_torch/train_loop.py", False)]
     tree = ast.parse((PORT / "train_loop.py").read_text())
     inside = [n.name for n in tree.body if isinstance(n, ast.FunctionDef)
@@ -169,12 +175,14 @@ def _top_level_names(node):
     return {getattr(node, "name", None)}
 
 
-def _code(path, only=None, drop=()):
+def _code(path, only=None, drop=(), transform=None):
     """The file's code as an AST dump without docstrings, with the JAX
     package's name replaced by the port's; only: the top-level names to
     keep; drop: top-level names (functions, classes, constants) to leave
-    out."""
+    out; transform: an `ast.NodeTransformer` applied first."""
     tree = ast.parse(JAX_NAME.sub("openpose_tpu_torch", path.read_text()))
+    if transform is not None:
+        tree = transform.visit(tree)
     tree.body = [n for n in tree.body if not _top_level_names(n) & set(drop)]
     for node in ast.walk(tree):
         if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef)) \
@@ -209,6 +217,41 @@ def test_copied_module_has_the_originals_code(relative):
     names = set().union(*map(_top_level_names,
                              ast.parse((PORT / relative).read_text()).body))
     assert set(drop) <= names
+
+
+class _WithoutOpenCV(ast.NodeTransformer):
+    """Takes out where a module gets OpenCV: `import cv2`, `cv2 =
+    opencv()`, the port's `opencv` helper and the imports of it."""
+
+    def visit_Import(self, node):
+        return None if any(a.name == "cv2" for a in node.names) else node
+
+    def visit_ImportFrom(self, node):
+        node.names = [a for a in node.names if a.name != "opencv"]
+        return node if node.names else None
+
+    def visit_Assign(self, node):
+        targets = [getattr(t, "id", None) for t in node.targets]
+        return None if targets == ["cv2"] else node
+
+    def visit_FunctionDef(self, node):
+        if node.name == "opencv":
+            return None
+        self.generic_visit(node)
+        return node
+
+
+@pytest.mark.parametrize("relative", [
+    "threed/calibration.py", "threed/visualsfm.py", "calibration_cli.py"])
+def test_calibration_toolbox_is_the_originals_code(relative):
+    """The calibration toolbox is a copy that gets OpenCV where it is used
+    (`threed/calibration.py::opencv`) instead of at the top of a module:
+    with that taken out of both, the code is the original's under the
+    port's package name.  `tests/test_torch_calibration.py` runs both."""
+    mine = _code(PORT / relative, transform=_WithoutOpenCV())
+    assert mine == _code(ROOT / "openpose_tpu" / relative,
+                         transform=_WithoutOpenCV())
+    assert mine != _code(PORT / relative)     # the port gets cv2 elsewhere
 
 
 @pytest.mark.parametrize("relative,names", [

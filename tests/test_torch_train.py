@@ -633,9 +633,9 @@ def test_bf16_step_differentiates():
 def test_model_parallel_is_refused():
     config = train_loop.TrainConfig(model=PoseModel.MPI_15_4,
                                     model_parallel=2, steps=1)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         train_loop.train(config, iter([]), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         train_loop.device_step_probe(config, device="cpu")
 
 
