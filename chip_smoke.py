@@ -73,7 +73,13 @@ with a non-zero exit when it fails:
    cameras on the card against the CPU and the truth; `pyopenpose` at
    render_pose 0, `capi` and its C shim (built where the machine has
    Python's headers), each bit-equal to the CLI;
-14. threed: the rest of 3-D at ROADMAP's 3-D row (8 people x 25 parts x 4
+14. mesh: the entry points over a one-rank NCCL mesh, each held to the
+   call without a mesh: batch-8 `PoseInference` bit-equal with one fused
+   launch a call and no collective; `WholeBodyInference` at batch 4 equal;
+   `train_loop.train` at 368x368, float32, 10 steps, its losses within
+   1e-6 relative; `dryrun_multichip(1)`; times of both sides;
+15. threed (in the mesh phase's process group): the rest of 3-D at
+   ROADMAP's 3-D row (8 people x 25 parts x 4
    cameras, 1280x720): `accuracy3d.bundle_eval` and `bundle_adjust` on
    the card against the CPU (equal within 1e-3, the JAX suite's recovery
    gates), their time, launches per LM iteration and card-busy share; the
@@ -87,6 +93,9 @@ refinement's shape (8 crops of 368x368, thresholds 0.02 and 0.01).
 
 `python3 chip_smoke.py --capped-trace` runs the people-capped call alone,
 timed and traced (to set two trees side by side on one card).
+`python3 chip_smoke.py --mesh-scaling` runs 1, 2 and 4 ranks, one per
+card, up to the cards there are: serving frames/s and train img/s of each
+world against one rank.
 `python3 chip_smoke.py --train-to-ap` trains BODY_25 from scratch for 1500
 steps (cosine schedule) and scores it through the whole pipeline, then
 serves the trained net from its checkpoint: the fused kernel against its
@@ -100,15 +109,17 @@ of its bytes (each input read once, each output written once) over the
 card's memory rate and its float operations (counted from this run's peak
 counts and line lengths) over the card's float32 rate.  The line before the
 last is the kernel summary, the last line {"ok": true, "device": {...}}.  Details go to build/chip_smoke/chip_smoke.json.
-The default run took 413 s on one H100 80GB HBM3 at 700 W, the build and
-every phase included, when the train phase trained 400 steps (62.2 s);
-its 1500 steps take 156.6 s.  `--train-to-ap` takes 175 s.
+The default run took 597.9 s on one H100 80GB HBM3 at 700 W, the build
+and every phase included (the train phase's 1500 steps 156.6 s, the mesh
+phase 38.3 s).  `--train-to-ap` takes 175 s; `--mesh-scaling` took 234 s
+on four of them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pathlib
 import shutil
 import subprocess
@@ -2529,6 +2540,229 @@ def cli_phase(device, checkpoint, n_frames=16, image_size=(184, 328),
     return out
 
 
+@contextlib.contextmanager
+def one_rank_group(device):
+    """A process group of this one process (NCCL on a card, gloo on the
+    CPU) through a file under build/, no address: the one already up when
+    there is one, else one that ends with the block."""
+    import torch.distributed as dist
+    from openpose_tpu_torch.parallel import mesh as mesh_lib
+    if dist.is_initialized():
+        yield
+        return
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    store = OUT_DIR / "group_store"
+    store.unlink(missing_ok=True)
+    try:
+        with mesh_lib.process_group(str(store), 1, 0, device):
+            yield
+    finally:
+        store.unlink(missing_ok=True)
+
+
+def unsharded_train(config, device, dtype):
+    """`train_loop.train`'s loop on one device without a mesh, whatever
+    group is up (the run the mesh phase's trainer is held to): the losses
+    of every step and ms per step from step 1 on, fed by the same seeded
+    scene iterator, the last step's checkpoint write included as in
+    `train`'s figure."""
+    import torch
+    from openpose_tpu_torch import train_loop
+    from openpose_tpu_torch.models import checkpoint
+    trainer = train_loop.Trainer(config, device, dtype)
+    data = train_loop.synthetic_scene_iterator(config, device=device)
+    losses = []
+    for step in range(config.steps):
+        images, keypoints = next(data)
+        losses.append(trainer.step(images, torch.as_tensor(
+            keypoints, dtype=torch.float32).to(device)))
+        if step == 0:
+            _sync(device)
+            t0 = time.perf_counter()
+    checkpoint.save(str(OUT_DIR / "mesh_ckpt" / "unsharded.npz"),
+                    trainer.full_params())
+    _sync(device)
+    step_ms = (time.perf_counter() - t0) * 1e3 / (config.steps - 1)
+    return [float(v) for v in losses], step_ms
+
+
+def mesh_phase(device, model, batch=8, net_hw=(368, 656), iters=6,
+               wb_batch=4, wb_frame_hw=(720, 1280), people_cap=8,
+               wb_net=368, train_size=(368, 368), train_batch=8,
+               train_steps=10):
+    """The port's entry points over a one-rank mesh (a NCCL group of this
+    process on the card; gloo on the CPU), each held to the call without a
+    mesh on the same inputs:
+    (a) batch-8 `PoseInference` at 368x656, bf16, 127 peaks: peaks and
+        scores bit-equal, one fused launch a call, no collective (the
+        torch.distributed calls made, and the NCCL kernels and the process
+        group's spans in a torch.profiler trace); ms per batch of both,
+        on the device and end to end, taken in turn;
+    (b) `WholeBodyInference` at batch 4, 720x1280, people cap 8: every
+        frame's results equal; ms per batch of both;
+    (c) `train_loop.train` at 368x368, batch 8, float32, 10 steps, against
+        the same loop without a mesh: the losses within 1e-6 relative (the
+        one-rank all-reduce is a copy); ms per step of both, fed by the
+        scene iterator, and of the step alone on one batch on the card, in
+        turns; one meshed step's collectives (one all-reduce);
+    (d) `parallel.dryrun.dryrun_multichip(1)`.
+    A ``model`` dimension of 2 needs two ranks, and NCCL takes no two
+    ranks on one card: the CPU tests hold that path."""
+    import numpy as np
+    import torch
+    from openpose_tpu_torch import train_loop
+    from openpose_tpu_torch.models import zoo
+    from openpose_tpu_torch.ops import paf_cuda
+    from openpose_tpu_torch.parallel import mesh as mesh_lib
+    from openpose_tpu_torch.parallel.dryrun import (
+        count_collectives, dryrun_multichip)
+    from openpose_tpu_torch.parallel.inference import PoseInference
+    from openpose_tpu_torch.runtime.whole_body import WholeBodyInference
+
+    out = {}
+    reset_launches()
+    t_phase = time.perf_counter()
+    config = train_loop.TrainConfig(image_size=train_size,
+                                    batch_size=train_batch, steps=train_steps,
+                                    checkpoint_every=train_steps,
+                                    checkpoint_dir=str(OUT_DIR / "mesh_ckpt"))
+    with one_rank_group(device):
+        mesh = mesh_lib.make_mesh(device_type=device.type)
+        out["mesh"] = [list(mesh.shape), list(mesh.mesh_dim_names),
+                       mesh.device_type]
+
+        # (a) serving
+        rng = np.random.RandomState(11)
+        frames = scene_frames(rng, batch, net_hw)
+        plain = PoseInference(model, net_hw=net_hw, device=device)
+        meshed = PoseInference(model, net_hw=net_hw, mesh=mesh)
+        assert meshed.device == device, (meshed.device, device)
+        images = torch.from_numpy(frames[meshed.local_rows(batch)]).to(device)
+        want, got = plain(images), meshed(images)
+        bit_equal = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+        per_call = launches_per_call("mesh (a) serving",
+                                     lambda: meshed(images))
+        _, collectives = count_collectives(
+            lambda: meshed.fetch(*meshed(images)))
+
+        def end_to_end(inference):
+            pk, sc = inference.fetch(*inference(images))
+            return [inference.assemble(pk[b], sc[b]) for b in range(batch)]
+        ms = {"plain_device": [], "meshed_device": [], "plain_end_to_end": [],
+              "meshed_end_to_end": []}
+        for _ in range(2):          # in turn: host-bound figures drift
+            for name, inference in (("plain", plain), ("meshed", meshed)):
+                ms[name + "_device"].append(timed(
+                    lambda: inference(images), 2, iters, device))
+                ms[name + "_end_to_end"].append(host_ms(
+                    lambda: end_to_end(inference), iters))
+        a = {"batch": batch, "net_hw": list(net_hw), "bit_equal": bit_equal,
+             "launches_per_call": per_call, "collectives": collectives,
+             "ms": ms}
+        out["a"] = a
+        log("mesh (a) PoseInference on a one-rank mesh against no mesh: "
+            + json.dumps(a))
+        assert bit_equal, "meshed serving differs from unsharded"
+        assert per_call["paf_scores_fused"] == 1, per_call
+        assert collectives == {"dist_calls": {}, "traced": 0,
+                               "nccl_kernels": 0}, collectives
+
+        # (b) whole body
+        face = zoo.load_face_model(device=device)
+        hand = zoo.load_hand_model(device=device)
+        rng = np.random.RandomState(2)
+        fh = wb_frame_hw[0]
+        wb_frames = np.stack([synthetic_scene(
+            rng, wb_frame_hw, min(4, people_cap), (0.6 * fh, 0.9 * fh))
+            for _ in range(wb_batch)])
+        kw = dict(frame_hw=wb_frame_hw, people_cap=people_cap,
+                  face_net_size=wb_net, hand_net_size=wb_net)
+        wb_plain = WholeBodyInference(model, face, hand, device=device, **kw)
+        wb_meshed = WholeBodyInference(model, face, hand, mesh=mesh, **kw)
+        wb_images = torch.from_numpy(
+            wb_frames[wb_meshed.local_rows(wb_batch)]).to(device)
+        want, got = wb_plain(wb_images), wb_meshed(wb_images)
+        fields = ("pose_keypoints", "pose_scores", "face_keypoints",
+                  "hand_left_keypoints", "hand_right_keypoints")
+        equal = len(got) == len(want) and all(
+            np.array_equal(getattr(g, f), getattr(w, f))
+            for g, w in zip(got, want) for f in fields)
+        b = {"batch": wb_batch, "frame_hw": list(wb_frame_hw),
+             "people_per_frame": [len(r.pose_keypoints) for r in got],
+             "equal": equal, "ms": {}}
+        for name, wb in (("plain", wb_plain), ("meshed", wb_meshed),
+                         ("plain_again", wb_plain),
+                         ("meshed_again", wb_meshed)):
+            b["ms"][name] = host_ms(lambda: wb(wb_images), 2)
+        out["b"] = b
+        log("mesh (b) WholeBodyInference on a one-rank mesh against no "
+            "mesh: " + json.dumps(b))
+        assert equal, "meshed whole body differs from unsharded"
+
+        # (c) training, float32, with cuDNN's deterministic algorithms
+        # chosen by its heuristics in both runs (its benchmark may pick
+        # another algorithm for each, and its fastest weight gradients sum
+        # with atomics: 3e-5 of the loss apart after 9 steps otherwise)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            plain_losses, plain_step_ms = unsharded_train(config, device,
+                                                          torch.float32)
+            stats = {}
+            train_loop.train(config, train_loop.synthetic_scene_iterator(
+                config, device=device), verbose=False, stats_out=stats,
+                device=device, compute_dtype=torch.float32)
+        rel = max(abs(stats["losses"][step] - plain_losses[step])
+                  / abs(plain_losses[step]) for step in stats["losses"])
+        trainer = train_loop.Trainer(config, device, torch.float32, mesh)
+        step_images, step_kp = _training_batch(device, config)
+        _, step_collectives = count_collectives(
+            lambda: float(trainer.step(step_images, step_kp)))
+        # the step alone, its inputs on the card, in turns
+        plain_trainer = train_loop.Trainer(config, device, torch.float32)
+        step_device_ms = {"plain": [], "meshed": []}
+        for name in ("plain", "meshed", "meshed", "plain"):
+            stepper = plain_trainer if name == "plain" else trainer
+            step_device_ms[name].append(timed(
+                lambda: stepper.step(step_images, step_kp), 1, 4, device))
+        del trainer, plain_trainer
+        c = {"steps": train_steps, "image_size": list(train_size),
+             "batch": train_batch, "meshed_losses": stats["losses"],
+             "plain_losses": {step: plain_losses[step]
+                              for step in stats["losses"]},
+             "max_rel_loss_diff": rel,
+             "meshed_step_ms": stats["step_ms"],
+             "plain_step_ms": plain_step_ms,
+             "meshed_img_s": stats["img_s"],
+             "step_device_ms": step_device_ms,
+             "step_collectives": step_collectives}
+        out["c"] = c
+        log("mesh (c) train_loop.train on a one-rank mesh against no mesh, "
+            "float32: " + json.dumps(c))
+        shutil.rmtree(OUT_DIR / "mesh_ckpt", ignore_errors=True)
+        assert rel <= 1e-6, c
+        assert step_collectives["dist_calls"] == {"all_reduce": 1}, c
+
+        # (d) every multi-device path at tiny shapes
+        t0 = time.perf_counter()
+        d = dryrun_multichip(1, device)
+        d["seconds"] = time.perf_counter() - t0
+        out["d"] = d
+        log("mesh (d) dryrun_multichip(1): " + json.dumps(d))
+    log("mesh: a model dimension of 2 needs two ranks and NCCL takes no two "
+        "ranks on one card; tests/test_torch_sharded.py holds it on the CPU")
+    out["launches"] = read_launches("mesh path", paf_cuda.paf_scores_fused)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def synthetic_scene(rng, frame_hw, n_people, height_range):
+    """One rendered scene of n_people (the numpy renderer)."""
+    from openpose_tpu_torch import synthetic
+    return synthetic.render_scene_image(
+        synthetic.random_people(rng, n_people, frame_hw,
+                                height_range=height_range), frame_hw, rng)
+
+
 def ba_arrays(problem, device, iterations, mesh=None):
     """`bundle_adjust` on `accuracy3d.bundle_problem`'s inputs."""
     from openpose_tpu_torch.threed.bundle_adjustment import bundle_adjust
@@ -2553,9 +2787,10 @@ def threed_phase(device, n_people=8, iterations=15, card_iters=3, cpu_iters=1,
         limit), camera rotation error under 0.2x and point RMSE under 0.7x
         of their start (`tests/test_accuracy3d.py`); ms per call, launches
         per call and per LM iteration, the card-busy share;
-    (b) the sharded path: a one-rank NCCL group (a FileStore under build/,
-        no network), `make_mesh(model=1)`, `bundle_adjust(mesh=...)` equal
-        to `bundle_adjust()` within 1e-6 (bit-equal expected);
+    (b) the sharded path: a one-rank NCCL group (`one_rank_group`: the mesh
+        phase's in the default run), `make_mesh(model=1)`,
+        `bundle_adjust(mesh=...)` equal to `bundle_adjust()` within 1e-6
+        (bit-equal expected);
     (c) `accuracy3d.noise_sweep` on the card against the CPU: the same
         `valid_fraction`, `rmse_mm` within 1e-2 mm, and the JAX suite's
         gates (0.5 mm at 0 px, 10 mm at 1 px, reprojection under the
@@ -2565,7 +2800,6 @@ def threed_phase(device, n_people=8, iterations=15, card_iters=3, cpu_iters=1,
     import importlib.util
     import numpy as np
     import torch
-    import torch.distributed as dist
     from openpose_tpu_torch import accuracy3d
     from openpose_tpu_torch.parallel import mesh as mesh_lib
     from openpose_tpu_torch.threed import visualsfm
@@ -2611,15 +2845,10 @@ def threed_phase(device, n_people=8, iterations=15, card_iters=3, cpu_iters=1,
         assert r["cam_rot_err_deg_out"] < 0.2 * r["cam_rot_err_deg_in"], r
         assert r["rmse_mm_after_ba"] < 0.7 * r["rmse_mm_before_ba"], r
 
-    # (b) the sharded path on a one-rank NCCL group
+    # (b) the sharded path on a one-rank NCCL group (the mesh phase's, when
+    # it is up)
     if device.type == "cuda":
-        OUT_DIR.mkdir(parents=True, exist_ok=True)
-        store_path = OUT_DIR / "nccl_store"
-        store_path.unlink(missing_ok=True)
-        dist.init_process_group(
-            "nccl", store=dist.FileStore(str(store_path), 1), rank=0,
-            world_size=1)
-        try:
+        with one_rank_group(device):
             mesh = mesh_lib.make_mesh(model=1)
             sharded = ba_arrays(problem, device, iterations, mesh=mesh)
             b = {"mesh": [list(mesh.shape), list(mesh.mesh_dim_names),
@@ -2629,9 +2858,6 @@ def threed_phase(device, n_people=8, iterations=15, card_iters=3, cpu_iters=1,
                                   for s, c in zip(sharded, card)),
                  "sharded_ms": host_ms(lambda: ba_arrays(
                      problem, device, iterations, mesh=mesh), card_iters)}
-        finally:
-            dist.destroy_process_group()
-            store_path.unlink(missing_ok=True)
         out["b"] = b
         log("threed (b) bundle_adjust(mesh=make_mesh(model=1)) on a "
             "one-rank NCCL group: " + json.dumps(b))
@@ -2685,6 +2911,135 @@ def threed_phase(device, n_people=8, iterations=15, card_iters=3, cpu_iters=1,
     return out
 
 
+def unsharded_dryrun_loss(device, rows):
+    """The loss of `dryrun_multichip`'s train step without a mesh: BODY_25
+    at 64x64 from seed 0, `rows` images of zeros with people at (20,
+    20)."""
+    import torch
+    from openpose_tpu_torch import train
+    from openpose_tpu_torch.models import graph
+    from openpose_tpu_torch.ops import paf
+    from openpose_tpu_torch.params import POSE_MODEL_INFO, PoseModel
+    info = POSE_MODEL_INFO[PoseModel.BODY_25]
+    state = train.init_train_state(graph.load_spec(info.spec),
+                                   torch.Generator().manual_seed(0), 1e-4,
+                                   device)
+    pairs, map_idx = (torch.from_numpy(t).to(device)
+                      for t in paf.pair_tables(info))
+    keypoints = torch.zeros((rows, 4, info.num_parts, 3), device=device)
+    keypoints[..., :2] = 20.0
+    keypoints[..., 2] = 1.0
+    targets = train.make_targets(keypoints, pairs, map_idx, (64, 64),
+                                 info.num_parts, info.heatmap_channels)
+    _, loss = train.make_train_step(torch.float32)(
+        state, torch.zeros((rows, 64, 64, 3), device=device), targets)
+    return float(loss)
+
+
+def _scaling_rank(rank, world, init_file, device_type, batch, net_hw,
+                  iters, train_size, train_steps):
+    """One rank of `mesh_scaling`: batch frames of its own through
+    `PoseInference`, end to end and on the device, `train_loop.train` and
+    its step alone over the world's data mesh, and `dryrun_multichip` over
+    the world (a ``model`` dimension of 2 where it is even); rank 0 writes
+    the world's figures."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from openpose_tpu_torch import train_loop
+    from openpose_tpu_torch.models import zoo
+    from openpose_tpu_torch.parallel import mesh as mesh_lib
+    from openpose_tpu_torch.parallel.dryrun import dryrun_multichip
+    from openpose_tpu_torch.parallel.inference import PoseInference
+    device = torch.device(device_type, rank) if device_type == "cuda" \
+        else torch.device("cpu")
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.benchmark = True
+    with mesh_lib.process_group(init_file, world, rank, device):
+        mesh = mesh_lib.make_mesh(device_type=device.type)
+        model = zoo.load_pose_model(seed=0, device=device)
+        inference = PoseInference(model, net_hw=net_hw, mesh=mesh)
+        frames = scene_frames(np.random.RandomState(rank), batch, net_hw)
+        images = torch.from_numpy(frames).to(device)
+
+        def serve():
+            pk, sc = inference.fetch(*inference(images))
+            return [inference.assemble(pk[b], sc[b]) for b in range(batch)]
+        serve()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            serve()
+        dist.barrier()
+        serve_s = time.perf_counter() - t0
+        device_ms = timed(lambda: inference(images), 2, iters, device)
+        config = train_loop.TrainConfig(
+            image_size=train_size, batch_size=batch * world,
+            steps=train_steps, checkpoint_every=train_steps,
+            checkpoint_dir=str(OUT_DIR / "scaling_ckpt"))
+        stats = {}
+        train_loop.train(config, train_loop.synthetic_scene_iterator(
+            config, prefetch_workers=2, device=device), verbose=False,
+            stats_out=stats, device=device, compute_dtype=torch.float32)
+        stats.update(train_loop.device_step_probe(config, device=device))
+        dryrun = dryrun_multichip(world, device) if world > 1 else None
+        if rank == 0:
+            if dryrun is not None:
+                want = unsharded_dryrun_loss(device, dryrun["mesh"][0])
+                dryrun["unsharded_loss"] = want
+                dryrun["rel_loss_diff"] = abs(dryrun["loss"] - want) / want
+            (OUT_DIR / f"scaling_{world}.json").write_text(json.dumps({
+                "ranks": world, "serving_fps": world * batch * iters
+                / serve_s, "serving_device_ms_per_rank": device_ms,
+                "serving_device_fps": world * batch * 1e3 / device_ms,
+                "train_img_s": stats["img_s"],
+                "train_step_ms": stats["step_ms"],
+                "train_device_step_ms": stats["device_step_ms"],
+                "train_device_img_s": stats["device_img_s"],
+                "dryrun": dryrun}))
+
+
+def mesh_scaling(max_ranks=4, batch=8, net_hw=(368, 656), iters=10,
+                 train_size=(368, 368), train_steps=10):
+    """One rank per card, 1, 2 and 4 ranks up to the cards there are
+    (`--mesh-scaling`; gloo ranks on the CPU where there is no card, to
+    rehearse): batch-8 bf16 serving frames/s end to end and on the device,
+    float32 train img/s at 368x368 and batch 8 a rank, fed and alone, of
+    each world against one rank; and `dryrun_multichip` over each world
+    of 2 ranks or more, its train step's loss against the same step
+    without a mesh."""
+    import torch
+    import torch.multiprocessing as mp
+    cards = torch.cuda.device_count()
+    device_type = "cuda" if cards else "cpu"
+    worlds = [n for n in (1, 2, 4) if n <= max_ranks
+              and (n <= cards or not cards)]
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    rates = []
+    for world in worlds:
+        init = OUT_DIR / f"scaling_store_{world}"
+        init.unlink(missing_ok=True)
+        mp.start_processes(
+            _scaling_rank, args=(world, str(init), device_type, batch,
+                                 net_hw, iters, train_size, train_steps),
+            nprocs=world, start_method="spawn")
+        rates.append(json.loads(
+            (OUT_DIR / f"scaling_{world}.json").read_text()))
+        log("mesh scaling: " + json.dumps(rates[-1]))
+        dryrun = rates[-1]["dryrun"]
+        assert dryrun is None or dryrun["rel_loss_diff"] <= 1e-5, dryrun
+    shutil.rmtree(OUT_DIR / "scaling_ckpt", ignore_errors=True)
+    for r in rates:
+        for key in ("serving_fps", "serving_device_fps", "train_img_s",
+                    "train_device_img_s"):
+            r[key + "_speedup"] = r[key] / rates[0][key]
+    log("mesh scaling against one rank: " + json.dumps(rates))
+    return rates
+
+
 def synthetic_frame(people, image_size, seed=7):
     """One scene of `people` drawn by the numpy renderer, its background
     from a fixed seed (so that views of one rig differ only by the
@@ -2729,6 +3084,9 @@ def main() -> int:
     if sys.argv[1:] == ["--train-to-ap"]:
         train_to_ap_run(device)
         return 0
+    if sys.argv[1:] == ["--mesh-scaling"]:
+        mesh_scaling()
+        return 0
     report["kernel"] = kernel_phase(device, model.info)
     report["sampler"] = sampler_phase(device)
     report["main_path"] = main_path_phase(device, model)
@@ -2744,7 +3102,9 @@ def main() -> int:
     finally:
         shutil.rmtree(pathlib.Path(report["train"]["checkpoint"]).parent,
                       ignore_errors=True)
-    report["threed"] = threed_phase(device)
+    with one_rank_group(device):       # one NCCL group for both phases
+        report["mesh"] = mesh_phase(device, model)
+        report["threed"] = threed_phase(device)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -2759,7 +3119,8 @@ def main() -> int:
         "replaces": "openpose_tpu/ops/paf_pallas.py:286",
         "launches": sum(report[phase]["launches"]["paf_scores_fused"]
                         for phase in ("main_path", "whole_body", "wrapper",
-                                      "runner", "accuracy", "train", "cli")),
+                                      "runner", "accuracy", "train", "cli",
+                                      "mesh")),
         "max_abs_err": max(kernel["max_abs_err"], report["main_path"][
             "breakdown"]["paf_main_path_max_abs_err"], report["accuracy"][
             "kernel_on_loop_batch"]["max_abs_err"], report["train"][
@@ -2769,8 +3130,8 @@ def main() -> int:
         "bound_by": kernel["bound"]["bound_by"], "library_ms": None}, {
         "name": "sample_bicubic_kernel", "route": "cuda", "source": source,
         "replaces": "openpose_tpu/ops/paf_pallas.py:335",
-        "launches": report["people_capped"]["launches"][
-            "sample_bicubic_scales"],
+        "launches": sum(report[phase]["launches"]["sample_bicubic_scales"]
+                        for phase in ("people_capped", "mesh")),
         "max_abs_err": max(sampler["max_abs_err"], report["people_capped"][
             "sampler_on_path"]["max_abs_err"]),
         "ms": sampler["ms"], "plain_ms": sampler["plain_ms"],

@@ -12,8 +12,14 @@ refinement, PAF scoring, assembly, COCO reordering or evaluation moves the
 reported AP.
 
 `train_to_ap` closes the other loop: train BODY_25 from scratch on rendered
-stick figures (`train_loop.train`), serve the trained weights through
-`PoseExtractor.forward` on held-out scenes, score the detections.
+stick figures (`train_loop.train`, over the process group when there is
+one), serve the trained weights through `PoseExtractor.forward` on
+held-out scenes, score the detections.
+
+With a `mesh` every rank calls the loop alike: each draws the whole global
+batch's scenes and noise, renders and decodes its own rows, and the
+detections (or errors) are gathered over ``data``, so every rank returns
+the unsharded call's metrics.
 
 Noise and keypoint jitter come from a `torch.Generator` made from `seed`:
 other draws than the JAX package's `jax.random` gives, so at `noise > 0` or
@@ -29,6 +35,7 @@ from typing import Dict, List, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from openpose_tpu_torch import device as device_rule
 from openpose_tpu_torch import synthetic, train, train_loop
@@ -37,6 +44,7 @@ from openpose_tpu_torch.hand.detector import detect_hands
 from openpose_tpu_torch.io import coco_eval, json_io
 from openpose_tpu_torch.models import zoo
 from openpose_tpu_torch.ops import paf, resize, warp
+from openpose_tpu_torch.parallel import mesh as mesh_lib
 from openpose_tpu_torch.parallel.inference import (
     PoseInference, TopDownInference)
 from openpose_tpu_torch.params import (
@@ -44,6 +52,17 @@ from openpose_tpu_torch.params import (
 from openpose_tpu_torch.pose.extractor import PoseExtractor
 
 Device = Union[str, torch.device, None]
+
+
+def _gather_rows(mesh, rows: list) -> list:
+    """Every data rank's `rows` (lists of (order key, ...) tuples), merged
+    and sorted by their keys: what one process would have made."""
+    if mesh is None:
+        return rows
+    parts = [None] * mesh_lib.size(mesh, "data")
+    dist.all_gather_object(parts, rows, group=mesh.get_group("data"))
+    return sorted((row for part in parts for row in part),
+                  key=lambda row: row[0])
 
 
 def synthetic_coco_eval(n_images: int = 64,
@@ -55,9 +74,12 @@ def synthetic_coco_eval(n_images: int = 64,
                         seed: int = 0,
                         model=None,
                         assembly_workers: int = 4,
-                        device: Device = None) -> Dict[str, float]:
+                        device: Device = None,
+                        mesh=None) -> Dict[str, float]:
     """Run the closed loop on `device` (the card when None); returns {AP,
     AP50, AP75, AR, n_images, noise, kp_jitter, n_detections, n_gt}.
+    With a `mesh`, on every rank of it (the batch rounded down to a
+    multiple of its data shards, at least one each, as in the original).
 
     noise: stddev of SPATIALLY CORRELATED noise added to every net-output
     channel on the device (white noise drawn at 1/4 the map resolution and
@@ -68,7 +90,7 @@ def synthetic_coco_eval(n_images: int = 64,
     RENDERED keypoints only: the ground truth keeps the true positions, so
     this sweeps AP against controlled localization error of the "CNN".
     """
-    device = device_rule.resolve(device)
+    device = mesh_lib.rank_device(mesh, device)
     if model is None:
         model = zoo.load_pose_model(PoseModel.BODY_25, device=device)
     info = model.info
@@ -76,21 +98,29 @@ def synthetic_coco_eval(n_images: int = 64,
     pairs, map_idx = (torch.from_numpy(t).to(device)
                       for t in paf.pair_tables(info))
     inference = PoseInference(model, net_hw=net_hw, device=device,
-                              net_bypass=True, compute_dtype=torch.float32)
+                              net_bypass=True, compute_dtype=torch.float32,
+                              mesh=mesh)
+    dp = inference.data_parallelism
+    if batch % dp:
+        batch = dp * max(1, batch // dp)
+    rows = inference.local_rows(batch)
 
     generator = torch.Generator().manual_seed(seed)
 
     def render(kp_batch: np.ndarray) -> torch.Tensor:
+        """This rank's rows of the batch's net outputs; the jitter and noise
+        are drawn for the whole batch, so each row gets the draws it gets
+        in one process."""
         kp = torch.from_numpy(kp_batch)
         if kp_jitter:
             kp[..., :2] += kp_jitter * torch.randn(kp[..., :2].shape,
                                                    generator=generator)
-        out = train.make_targets(kp.to(device), pairs, map_idx, net_hw,
+        out = train.make_targets(kp[rows].to(device), pairs, map_idx, net_hw,
                                  info.num_parts, info.heatmap_channels)
         if noise:
             b, h8, w8, c = out.shape
-            low = torch.randn((b, max(1, h8 // 4), max(1, w8 // 4), c),
-                              generator=generator).to(device)
+            low = torch.randn((batch, max(1, h8 // 4), max(1, w8 // 4), c),
+                              generator=generator)[rows].to(device)
             out = out + noise * resize.resize_bicubic(low, (h8, w8))
         return out
 
@@ -118,14 +148,14 @@ def synthetic_coco_eval(n_images: int = 64,
                 kp_batch[bi, :people.shape[0]] = people
                 gts.extend(synthetic.coco_ground_truth(people, image_id))
             peaks, scores = inference.fetch(*inference(render(kp_batch)))
-            for bi, image_id in enumerate(ids):
+            for bi, image_id in enumerate(ids[rows]):
                 if image_id < n_images:
                     futures.append(pool.submit(assemble, image_id,
                                                peaks[bi], scores[bi]))
-        for fut in futures:
-            image_id, kp, sc = fut.result()
-            if kp.size:
-                saver.record(kp, sc, image_id)
+        found = [fut.result() for fut in futures]
+    for image_id, kp, sc in _gather_rows(mesh, found):
+        if kp.size:
+            saver.record(kp, sc, image_id)
 
     detections = saver.entries[json_io.VARIANT_BODY]
     metrics = coco_eval.evaluate(detections, gts)
@@ -142,7 +172,8 @@ def synthetic_topdown_eval(kind: str = "face",
                            sigma: float = 7.0,
                            batch: int = 8,
                            seed: int = 0,
-                           device: Device = None) -> Dict[str, float]:
+                           device: Device = None,
+                           mesh=None) -> Dict[str, float]:
     """Closed-loop face/hand localization accuracy through the real
     top-down decode (crop geometry -> decode -> map-back).
 
@@ -159,16 +190,22 @@ def synthetic_topdown_eval(kind: str = "face",
 
     Returns {kind, rmse_px, max_err_px, pck05, n_instances, n_parts}:
     rmse in FRAME pixels over every valid part, PCK@0.05 = fraction of
-    parts within 5% of the rect side.
+    parts within 5% of the rect side.  With a `mesh`, on every rank of it
+    (the batch rounded as `synthetic_coco_eval` rounds it).
     """
-    device = device_rule.resolve(device)
+    device = mesh_lib.rank_device(mesh, device)
     is_face = kind == "face"
     num_parts = FACE_NUMBER_PARTS if is_face else HAND_NUMBER_PARTS
     cap = people_range[1] * (1 if is_face else 2)
     model = (zoo.load_face_model(device=device) if is_face
              else zoo.load_hand_model(device=device))
     topdown = TopDownInference(model, net_size=net_size, people_cap=cap,
-                               device=device, compute_dtype=torch.float32)
+                               device=device, compute_dtype=torch.float32,
+                               mesh=mesh)
+    dp = mesh_lib.size(mesh, "data")
+    if batch % dp:
+        batch = dp * max(1, batch // dp)
+    mine = mesh_lib.local_rows(mesh, batch)
 
     s8 = net_size // 8
     # map px m <-> crop coord (m + 0.5)*8 - 0.5 (train.make_targets grid;
@@ -177,8 +214,8 @@ def synthetic_topdown_eval(kind: str = "face",
     grid = (np.arange(s8, dtype=np.float32) + 0.5) * 8.0 - 0.5
 
     rng = np.random.RandomState(seed)
-    errors: List[np.ndarray] = []
-    rel_errors: List[np.ndarray] = []
+    # ((frame, slot), error, relative error) of this rank's rows
+    found: List[Tuple[Tuple[int, int], np.ndarray, np.ndarray]] = []
     n_instances = 0
 
     for start in range(0, n_frames, batch):
@@ -218,16 +255,17 @@ def synthetic_topdown_eval(kind: str = "face",
                     rows.append((slot, pts, tr, max(rw, rh)))
                     n_instances += 1
             gt.append(rows)
-        peaks = topdown(None, None, net_output=maps).cpu().numpy()
-        for bi, rows in enumerate(gt):
-            for slot, pts, tr, side in rows:
+        peaks = topdown(None, None, net_output=maps[mine]).cpu().numpy()
+        for bi, frame_gt in enumerate(gt[mine]):
+            for slot, pts, tr, side in frame_gt:
                 xy = warp.map_back(peaks[bi, slot, :num_parts, :2], tr)
                 err = np.linalg.norm(xy - pts, axis=-1)
-                errors.append(err)
-                rel_errors.append(err / max(side, 1.0))
+                found.append(((start + mine.start + bi, slot), err,
+                              err / max(side, 1.0)))
 
-    err = np.concatenate(errors) if errors else np.zeros(1)
-    rel = np.concatenate(rel_errors) if rel_errors else np.ones(1)
+    found = _gather_rows(mesh, found)
+    err = np.concatenate([f[1] for f in found]) if found else np.zeros(1)
+    rel = np.concatenate([f[2] for f in found]) if found else np.ones(1)
     return {
         "kind": kind,
         "rmse_px": float(np.sqrt((err ** 2).mean())),

@@ -5,6 +5,9 @@ Counterpart of `openpose_tpu/cli.py`: the same flags and defaults and the
 same host code, over the port's `Wrapper`, `PoseInference`,
 `WholeBodyInference` and `VideoRunner` on one CUDA device (the card unless
 `main` is given another `device`; `--num_gpu_start k` picks `cuda:k`).
+On the batched path `--num_gpu N` above 1 starts N processes, one per card
+from `--num_gpu_start` (or N gloo ranks on the CPU when `main` is given
+`device="cpu"`), each on its own rows of every batch.
 
 Example:
     python -m openpose_tpu_torch.cli --image_dir /path/imgs --write_json out/ \
@@ -14,8 +17,10 @@ Example:
 from __future__ import annotations
 
 import argparse
+import os
 import pathlib
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -41,8 +46,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flir_camera_index", type=int, default=-1,
                    help="unsupported (Spinnaker SDK, flags.hpp:46)")
     p.add_argument("--num_gpu", type=int, default=-1,
-                   help="number of GPUs (flags.hpp num_gpu); more than 1 is "
-                        "not supported yet")
+                   help="number of GPUs (flags.hpp num_gpu): on the batched "
+                        "path N > 1 starts N processes, one per GPU from "
+                        "--num_gpu_start, each on its own rows of every "
+                        "batch; other paths, and -1, use one GPU")
     p.add_argument("--num_gpu_start", type=int, default=0,
                    help="first device index (flags.hpp num_gpu_start)")
     p.add_argument("--frame_first", type=int, default=0)
@@ -273,17 +280,9 @@ def fast_path_eligible(args) -> bool:
 
 
 def _cli_device(args, device=None):
-    """--num_gpu/--num_gpu_start -> the one device this run uses
-    (flags.hpp:69-71).  `device`, a caller's keyword, wins; else
-    --num_gpu_start k picks cuda:k; else None (the card, `device.resolve`).
-    More than one GPU needs the mesh (`parallel/mesh.py`) wired into the
-    CLI, the port's last slice."""
-    if args.num_gpu > 1:
-        raise SystemExit(
-            f"--num_gpu {args.num_gpu}: multi-GPU runs are not ported yet "
-            "(parallel/mesh.py is; wiring it into the CLI is the last slice, "
-            "ROADMAP Queue 1 item 7); use --num_gpu 1 with --num_gpu_start "
-            "to pick the GPU")
+    """--num_gpu_start -> the device of a one-device run (flags.hpp:69-71).
+    `device`, a caller's keyword, wins; else --num_gpu_start k picks cuda:k;
+    else None (the card, `device.resolve`)."""
     if device is not None:
         return torch.device(device)
     if args.num_gpu_start == 0:
@@ -296,11 +295,64 @@ def _cli_device(args, device=None):
     return torch.device("cuda", args.num_gpu_start)
 
 
-def run_fast_path(args, device=None) -> int:
+def _rank_devices(args, device=None):
+    """--num_gpu N > 1 -> the device of each rank (the counterpart of the
+    original's `_cli_mesh`): cards --num_gpu_start .. +N-1, or N CPU ranks
+    when the caller's `device` is the CPU."""
+    n, start = args.num_gpu, args.num_gpu_start
+    if device is not None and torch.device(device).type == "cpu":
+        return [torch.device("cpu")] * n
+    count = torch.cuda.device_count()
+    if start + n > count:
+        raise SystemExit(f"--num_gpu {n} --num_gpu_start {start}: only "
+                         f"{count} CUDA devices available")
+    return [torch.device("cuda", start + r) for r in range(n)]
+
+
+def run_ranks(args, devices) -> int:
+    """The batched path over one rank per device: started by
+    `torch.multiprocessing` (spawn), meeting through a file store in a
+    temporary folder (no address), each running `run_fast_path` over a data
+    mesh of all ranks.  Returns 0 when every rank ended well; when one
+    fails, the others are stopped and the result is 1."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory(prefix="openpose_ranks_") as tmp:
+        ctx = mp.start_processes(
+            _rank_main, args=(args, devices, os.path.join(tmp, "init")),
+            nprocs=len(devices), join=False, start_method="spawn")
+        try:
+            while not ctx.join():
+                pass
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+            print(f"openpose_tpu_torch: {e}", file=sys.stderr)
+            return 1
+    return 0
+
+
+def _rank_main(rank, args, devices, init_file):
+    """One rank of `run_ranks`: NCCL on its card, or gloo on the CPU, where
+    the ranks share the host's cores."""
+    from openpose_tpu_torch.parallel import mesh as mesh_lib
+    if devices[rank].type == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // len(devices)))
+    with mesh_lib.process_group(init_file, len(devices), rank,
+                                devices[rank]) as device:
+        run_fast_path(args, device,
+                      mesh_lib.make_mesh(device_type=device.type))
+
+
+def run_fast_path(args, device=None, mesh=None) -> int:
     """Batched disk -> JSON pipeline: the reference's worker graph
     (configureThreadManager, wrapperAuxiliary.hpp:991-1217) as batched
-    device calls on one GPU fed by the C++ decode pool."""
+    device calls on one GPU fed by the C++ decode pool.
+
+    mesh: a data mesh of `run_ranks`' ranks; this rank then processes its
+    own rows of each global batch (the batch rounded up to tile the mesh)
+    and writes its own frames' JSON and keypoint files, and rank 0 writes
+    the COCO file of every frame, in frame order."""
     import pathlib as _pathlib
+
+    import torch.distributed as dist
 
     from openpose_tpu_torch.io import json_io, producers, savers
     from openpose_tpu_torch.models import zoo
@@ -314,6 +366,11 @@ def run_fast_path(args, device=None) -> int:
         # default -1x368 -> the reference's 656x368 headline geometry;
         # otherwise scale the width by the same 16:9-ish ratio, x16 aligned
         net_w = int(round(net_h * 656.0 / 368.0 / 16.0)) * 16
+    if mesh is not None:
+        # the batch must tile the mesh's data dimension
+        dp = mesh.size()
+        batch = -(-batch // dp) * dp
+    lead = mesh is None or dist.get_rank() == 0
 
     device = device_rule.resolve(device)
     model = zoo.load_pose_model(
@@ -350,7 +407,7 @@ def run_fast_path(args, device=None) -> int:
             scale_number=args.scale_number, scale_gap=args.scale_gap,
             face_net_size=parse_resolution(args.face_net_resolution)[1],
             hand_net_size=parse_resolution(args.hand_net_resolution)[1],
-            compute_dtype=dtype,
+            compute_dtype=dtype, mesh=mesh,
             nms_threshold=cp.nms_threshold,
             inter_threshold=cp.inter_threshold,
             inter_min_above_threshold=cp.inter_min_above_threshold)
@@ -362,7 +419,7 @@ def run_fast_path(args, device=None) -> int:
             nms_threshold=cp.nms_threshold,
             inter_threshold=cp.inter_threshold,
             inter_min_above_threshold=cp.inter_min_above_threshold,
-            compute_dtype=dtype)
+            compute_dtype=dtype, mesh=mesh)
         # assembly with --maximize_positives' limits, as the reference's
         # extractor would assemble
         inference.connect = cp
@@ -376,6 +433,13 @@ def run_fast_path(args, device=None) -> int:
         if args.write_keypoint else None
     coco_saver = json_io.CocoJsonSaver(args.write_coco_json_variants) \
         if args.write_coco_json else None
+    coco_rows = []      # over a mesh: (frame, args, kwargs) of each record
+
+    def coco_record(index, *record_args, **record_kwargs):
+        if mesh is None:
+            coco_saver.record(*record_args, **record_kwargs)
+        else:
+            coco_rows.append((index, record_args, record_kwargs))
 
     names = {}
 
@@ -391,8 +455,8 @@ def run_fast_path(args, device=None) -> int:
         if keypoint_saver is not None:
             keypoint_saver.save([kp], name, "pose")
         if coco_saver is not None and kp.size:
-            coco_saver.record(kp, sc, json_io.image_id_from_name(name),
-                              frame_number=index)
+            coco_record(index, kp, sc, json_io.image_id_from_name(name),
+                        frame_number=index)
         if args.cli_verbose > 0 \
                 and (index + 1) % max(int(args.cli_verbose), 1) == 0:
             print(f"Processed {index + 1} frames")
@@ -430,8 +494,8 @@ def run_fast_path(args, device=None) -> int:
             if keypoint_saver is not None:
                 keypoint_saver.save([res.pose_keypoints], name, "pose")
             if coco_saver is not None and res.pose_keypoints.size:
-                coco_saver.record(
-                    res.pose_keypoints, res.pose_scores,
+                coco_record(
+                    idx, res.pose_keypoints, res.pose_scores,
                     json_io.image_id_from_name(name),
                     face_keypoints=res.face_keypoints,
                     hand_left_keypoints=res.hand_left_keypoints,
@@ -465,11 +529,24 @@ def run_fast_path(args, device=None) -> int:
         for idx, kp, sc in smoother.flush():
             emit_result(idx, kp, sc)
     dt = time.time() - t0
-    if coco_saver is not None:
-        coco_saver.save(args.write_coco_json)
     n = len(results)
-    print(f"openpose_tpu_torch: {n} frames in {dt:.2f}s "
-          f"({n / max(dt, 1e-9):.2f} fps) [batched pipeline, batch={batch}]")
+    if mesh is not None:
+        # every rank's frame count and COCO records to rank 0
+        parts = [None] * dist.get_world_size() if lead else None
+        dist.gather_object((n, coco_rows), parts, dst=0)
+        if lead:
+            n = sum(count for count, _ in parts)
+            for _, record_args, record_kwargs in sorted(
+                    (row for _, rows in parts for row in rows),
+                    key=lambda row: row[0]):
+                coco_saver.record(*record_args, **record_kwargs)
+    if coco_saver is not None and lead:
+        coco_saver.save(args.write_coco_json)
+    if lead:
+        ranks = "" if mesh is None else f", ranks={mesh.size()}"
+        print(f"openpose_tpu_torch: {n} frames in {dt:.2f}s "
+              f"({n / max(dt, 1e-9):.2f} fps) [batched pipeline, "
+              f"batch={batch}{ranks}]")
     return 0
 
 
@@ -525,9 +602,15 @@ def main(argv=None, device=None) -> int:
         Priority.NO_OUTPUT if args.logging_level >= 5
         else Priority(args.logging_level))
 
-    device = _cli_device(args, device)
     if fast_path_eligible(args):
-        return run_fast_path(args, device)
+        if args.num_gpu > 1:
+            if args.smooth_keyframes > 0:
+                raise SystemExit(
+                    "--smooth_keyframes needs every frame in one process; "
+                    "it runs with --num_gpu 1")
+            return run_ranks(args, _rank_devices(args, device))
+        return run_fast_path(args, _cli_device(args, device))
+    device = _cli_device(args, device)
 
     producer = producers.create_producer(
         image_dir=args.image_dir or None, video=args.video or None,

@@ -22,6 +22,9 @@ topology files) runs as an `nn.Module` over a dict of activations:
   `torch.inference_mode()` and wraps forward and backward in
   `full_f32_convs()` (the backward pass runs after `forward` has left its
   own context); `serving_view()` gives a serving net over the same storage.
+* A weight may be a DTensor holding this rank's shard of a model-sharded
+  net (`parallel/mesh.py::shard_params`); `param` gathers it at use and
+  its gradient comes back as the rank's shard.
 * Caffe pooling uses ceil-mode output sizes with -inf padding at the bottom
   and right, written out explicitly (PyTorch's ceil_mode drops a last window
   that starts in the padding; Caffe's output size keeps it).
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from openpose_tpu_torch.models.caffe_proto import LayerSpec, NetSpec
 
@@ -184,13 +188,16 @@ class PoseNet(nn.Module):
                 continue
             for key, val in params[layer.name].items():
                 val = val.to(torch.float32)
-                if val.ndim == 4:   # conv weights in the activations' layout
+                # conv weights in the activations' layout (a shard keeps
+                # the layout of the weight it was cut from)
+                if val.ndim == 4 and not isinstance(val, DTensor):
                     val = val.contiguous(memory_format=torch.channels_last)
                 self.weights[f"{layer.name}__{key}"] = nn.Parameter(
                     val, requires_grad=trainable)
 
     def param(self, layer: str, key: str) -> torch.Tensor:
-        return self.weights[f"{layer}__{key}"]
+        p = self.weights[f"{layer}__{key}"]
+        return p.full_tensor() if isinstance(p, DTensor) else p
 
     def params(self) -> Params:
         """`{layer: {"w" | "b" | "slope": tensor}}` over the net's own

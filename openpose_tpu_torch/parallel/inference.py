@@ -1,16 +1,23 @@
-"""Batched inference on one GPU.
+"""Batched inference on one GPU or over a device mesh.
 
 * `PoseInference`: counterpart of
-  `openpose_tpu/parallel/inference.py::ShardedPoseInference` without the
-  mesh.  A batch of frames goes through per-scale resize -> CNN ->
-  resize-and-merge -> NMS -> PAF scoring as one batch; outputs stay on the
-  device, and `fetch` copies them to the host with the pair scores cut to
-  the smallest `SCORE_BUCKETS` size that covers the batch's largest peak
-  count.
+  `openpose_tpu/parallel/inference.py::ShardedPoseInference`.  A batch of
+  frames goes through per-scale resize -> CNN -> resize-and-merge -> NMS ->
+  PAF scoring as one batch; outputs stay on the device, and `fetch` copies
+  them to the host with the pair scores cut to the smallest
+  `SCORE_BUCKETS` size that covers the batch's largest peak count.
 * `TopDownInference`: counterpart of `ShardedTopDown`: every frame of a
   batch crops up to `people_cap` square ROIs, one CNN forward covers all
   crops, a windowed argmax decodes them, and `extract` maps the keypoints
-  back to frame pixels.
+  back to frame pixels.  The original's crop-tier ladder is not ported: the
+  port crops only the slots up to the last active one.
+
+With a `mesh` (`parallel/mesh.py`), every rank calls with its own rows of
+the global batch (`local_rows`) and gets its own outputs.  With a ``model``
+dimension of 1 the call runs no collective: each rank's forward,
+resize-merge, NMS and PAF scoring are its own.  With a larger one the
+weights are held as the rank's shards and gathered at use, and the ranks of
+one ``model`` group must pass the same rows.
 """
 
 from __future__ import annotations
@@ -20,11 +27,11 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from openpose_tpu_torch import device as device_rule
 from openpose_tpu_torch.models import graph
 from openpose_tpu_torch.models.zoo import Model
 from openpose_tpu_torch.ops import (
     assembly, maximum, nms, paf, resize, warp)
+from openpose_tpu_torch.parallel import mesh as mesh_lib
 from openpose_tpu_torch.params import (
     POSE_MAX_PEOPLE, PoseModel, default_connect_params)
 from openpose_tpu_torch.pose import scaler
@@ -38,6 +45,19 @@ def rect_is_active(rect: Rect) -> bool:
     return min(rect[2], rect[3]) > 1 and rect[2] * rect[3] > 10
 
 
+def _mesh_setup(owner, model: Model, mesh, device) -> None:
+    """The device, mesh and net of an inference object: the model's own net
+    on `device`, or with a mesh the rank's device and, where the mesh has a
+    ``model`` dimension above 1, a net over the rank's weight shards."""
+    owner.mesh = mesh
+    owner.device = mesh_lib.rank_device(mesh, device)
+    model.net.to(owner.device)
+    owner.net = model.net
+    if mesh_lib.size(mesh, "model") > 1:
+        owner.net = graph.PoseNet(model.spec, mesh_lib.shard_params(
+            mesh, model.net.params()))
+
+
 def _host_copy(t: torch.Tensor) -> torch.Tensor:
     """Start a copy of t to host memory; on a CUDA tensor it is
     asynchronous (pinned memory) and done once the stream passes it."""
@@ -49,7 +69,8 @@ def _host_copy(t: torch.Tensor) -> torch.Tensor:
 
 
 class PoseInference:
-    """Batched BODY-model inference on one device."""
+    """Batched BODY-model inference on one device, or on this rank's rows
+    over a mesh."""
 
     # the [B, P, K, K] scores dominate the device->host volume (1.7 MB per
     # frame at K = 127) while assembly reads only the [:count, :count] corner
@@ -63,7 +84,7 @@ class PoseInference:
                  compute_dtype: torch.dtype = torch.bfloat16,
                  scale_number: int = 1, scale_gap: float = 0.25,
                  frame_hw: Optional[Tuple[int, int]] = None,
-                 net_bypass: bool = False):
+                 net_bypass: bool = False, mesh=None):
         """frame_hw: if given, `__call__` takes raw frames [B, fh, fw, 3] and
         every scale resamples the frame on the device (the reference's
         multi-scale semantics); if None, frames are pre-sized scale-0 net
@@ -72,12 +93,15 @@ class PoseInference:
 
         net_bypass: `__call__` takes net outputs [B, net_h/8, net_w/8, C]
         and skips the CNN (the reference's Datum::poseNetOutput hook);
-        single scale, pre-sized only."""
+        single scale, pre-sized only.
+
+        mesh: a `parallel.mesh.make_mesh` mesh; every rank then calls with
+        its own rows of the global batch (`local_rows`).  The device is the
+        rank's (`mesh.rank_device`)."""
         if net_bypass and (scale_number != 1 or frame_hw is not None):
             raise ValueError("net_bypass supports only single-scale, "
                              "pre-sized inputs (like the reference hook)")
-        self.device = device_rule.resolve(device)
-        model.net.to(self.device)
+        _mesh_setup(self, model, mesh, device)
         self.model = model
         self.net_hw = net_hw
         self.max_peaks = max_peaks
@@ -105,6 +129,15 @@ class PoseInference:
         net_size = (int(s0 * in_wh[0] + 0.5), int(s0 * in_wh[1] + 0.5))
         self.scale_net_to_output = scaler.resize_get_scale_factor(
             net_size, in_wh)
+
+    @property
+    def data_parallelism(self) -> int:
+        """The number of data shards a global batch is cut into."""
+        return mesh_lib.size(self.mesh, "data")
+
+    def local_rows(self, batch: int) -> slice:
+        """This rank's rows of a global batch (`mesh.local_rows`)."""
+        return mesh_lib.local_rows(self.mesh, batch)
 
     def _check_input(self, x: torch.Tensor) -> None:
         if self.net_bypass:
@@ -140,8 +173,8 @@ class PoseInference:
                 # derived from the scale-0 canvas (s_0 == 1 here)
                 net_in = resize.resize_fixed_aspect(x, s_i / scales[0],
                                                     (h_i, w_i))
-            sources.append(self.model.forward(resize.normalize_vgg(net_in),
-                                              self.compute_dtype))
+            sources.append(self.net(resize.normalize_vgg(net_in),
+                                    self.compute_dtype))
         return sources
 
     @torch.inference_mode()
@@ -167,8 +200,8 @@ class PoseInference:
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """images [B, net_h, net_w, 3] BGR uint8 or float 0..255; raw
         [B, fh, fw, 3] frames with frame_hw; net outputs with net_bypass.
-        Returns (peaks [B, parts, K+1, 3], pair scores [B, P, K, K]), both
-        on the device."""
+        Over a mesh, B is this rank's rows.  Returns (peaks [B, parts, K+1,
+        3], pair scores [B, P, K, K]), both on the device."""
         return self.decode(self.net_outputs(images))
 
     def fetch(self, peaks: torch.Tensor, scores: torch.Tensor
@@ -234,9 +267,9 @@ class TopDownInference:
     def __init__(self, model: Model, net_size: int = 368,
                  people_cap: int = 8,
                  device: Union[str, torch.device, None] = None,
-                 compute_dtype: torch.dtype = torch.bfloat16):
-        self.device = device_rule.resolve(device)
-        model.net.to(self.device)
+                 compute_dtype: torch.dtype = torch.bfloat16, mesh=None):
+        """mesh: as `PoseInference`'s; every rank calls with its own rows."""
+        _mesh_setup(self, model, mesh, device)
         self.model = model
         self.net_size = net_size
         self.people_cap = people_cap
@@ -277,9 +310,8 @@ class TopDownInference:
         tr = torch.from_numpy(np.ascontiguousarray(transforms[:, :k]))
         crops = warp.crop_affine_batch(x.to(torch.float32),
                                        tr.to(self.device), s)
-        maps = self.model.forward(
-            resize.normalize_vgg(crops.reshape(b * k, s, s, 3)),
-            self.compute_dtype)
+        maps = self.net(resize.normalize_vgg(crops.reshape(b * k, s, s, 3)),
+                        self.compute_dtype)
         out[:, :k] = maximum.channel_argmax_refined(maps).reshape(
             b, k, self.channels, 3)
         return out

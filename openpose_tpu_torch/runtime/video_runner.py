@@ -12,6 +12,12 @@ CUDA launches are asynchronous: batch k+1 is decoded and submitted while
 batch k executes and batch k-1 is assembled on the host pool.  The loop that
 does this is one method, `_run_batches`; `run_files` and `run_video` only
 feed it from a pump.
+
+Over a meshed `PoseInference`, `batch_size` is the global batch: every rank
+runs its own runner over its own rows of each global batch and gets its
+own frames' results, in frame order, under their global frame indices.
+Files are decoded only by the rank that owns them; a video is decoded on
+every rank (its frames come in stream order), which keeps its own rows.
 """
 
 from __future__ import annotations
@@ -43,8 +49,12 @@ class VideoRunner:
     def __init__(self, inference: PoseInference,
                  batch_size: int = 8, decode_threads: int = 4,
                  assembly_workers: int = 4, max_in_flight: int = 4):
+        """batch_size: frames a device call takes; over a mesh the global
+        batch, which must tile it (this rank's share is `rows` of it)."""
         self.inference = inference
-        self.batch_size = batch_size
+        self.global_batch = batch_size
+        self.rows = inference.local_rows(batch_size)
+        self.batch_size = self.rows.stop - self.rows.start
         self.decode_threads = decode_threads
         self.assembly_workers = assembly_workers
         # device batches in flight before the oldest is resolved: while one
@@ -105,22 +115,27 @@ class VideoRunner:
         return FrameResult(index, keypoints, person_scores, src_wh)
 
     def _collect(self, batches: Iterable[Batch], source_wh,
-                 on_result) -> List[FrameResult]:
+                 on_result, index=None) -> List[FrameResult]:
+        """index(i): the global index of this rank's i-th frame (over a
+        mesh)."""
         results = []
         for res in self._run_batches(batches, source_wh):
+            if index is not None:
+                res.index = index(res.index)
             results.append(res)
             if on_result is not None:
                 on_result(res)
         return results
 
-    def _upload_buffers(self) -> List[np.ndarray]:
-        """One [batch_size, net_h, net_w, 3] uint8 buffer per batch that can
-        be on its way to the card at once, plus the one being filled; in
-        pinned memory when the inference runs on a card, so the upload does
-        not wait for the host."""
+    def _upload_buffers(self, frames: Optional[int] = None
+                        ) -> List[np.ndarray]:
+        """One [frames, net_h, net_w, 3] uint8 buffer (batch_size frames
+        when None) per batch that can be on its way to the card at once,
+        plus the one being filled; in pinned memory when the inference runs
+        on a card, so the upload does not wait for the host."""
         net_h, net_w = self.inference.net_hw
         pin = self.inference.device.type == "cuda"
-        return [torch.empty((self.batch_size, net_h, net_w, 3),
+        return [torch.empty((frames or self.batch_size, net_h, net_w, 3),
                             dtype=torch.uint8, pin_memory=pin).numpy()
                 for _ in range(self.max_in_flight + 1)]
 
@@ -135,12 +150,19 @@ class VideoRunner:
         if not available():
             raise RuntimeError("native frame pump not built (make -C native)")
         net_h, net_w = self.inference.net_hw
+        index = None
+        if self.inference.mesh is not None:
+            # this rank's rows of each global batch, by global index
+            rows, g = self.rows, self.global_batch
+            mine = [i for i in range(len(paths))
+                    if rows.start <= i % g < rows.stop]
+            index, paths = mine.__getitem__, [paths[i] for i in mine]
         pump = NativeFramePump(net_w, net_h, threads=self.decode_threads,
                                capacity=self.batch_size * 4)
         sizes: List[Tuple[int, int]] = []
         try:
             return self._collect(self._file_batches(pump, paths, sizes),
-                                 sizes.__getitem__, on_result)
+                                 sizes.__getitem__, on_result, index)
         finally:
             pump.close()
 
@@ -209,23 +231,43 @@ class VideoRunner:
                                capacity=self.batch_size * 4,
                                frame_step=frame_step)
         src_wh = pump.frame_size
+        index = None
+        if self.inference.mesh is not None:
+            # this rank's i-th frame: row i % b of global batch i // b
+            b = self.batch_size
+            index = lambda i: (i // b) * self.global_batch \
+                + self.rows.start + i % b
         try:
             return self._collect(self._video_batches(pump, max_frames),
-                                 lambda index: src_wh, on_result)
+                                 lambda i: src_wh, on_result, index)
         finally:
             pump.close()
 
     def _video_batches(self, pump, max_frames: int = -1) -> Iterator[Batch]:
-        buffers = self._upload_buffers()
+        """Batches of the stream; over a mesh, this rank's rows of each
+        global batch (the rest of the stream is decoded and dropped)."""
+        if self.inference.mesh is not None:
+            rows = self.rows
+            for buf, scl, got in self._global_video_batches(pump,
+                                                            max_frames):
+                real = min(max(got - rows.start, 0), self.batch_size)
+                if real:
+                    yield buf[rows], scl[rows], real
+            return
+        yield from self._global_video_batches(pump, max_frames)
+
+    def _global_video_batches(self, pump, max_frames: int = -1
+                              ) -> Iterator[Batch]:
+        buffers = self._upload_buffers(self.global_batch)
         filled = taken = 0
         while True:
-            want = self.batch_size
+            want = self.global_batch
             if max_frames >= 0:
                 want = min(want, max_frames - taken)
                 if want <= 0:
                     return
             buf = buffers[filled % len(buffers)]
-            scl = np.empty((self.batch_size,), np.float64)
+            scl = np.empty((self.global_batch,), np.float64)
             got = 0
             eof = False
             while got < want:
@@ -243,7 +285,7 @@ class VideoRunner:
                 got += k
             if got == 0:
                 return
-            if got < self.batch_size:       # pad the tail batch
+            if got < self.global_batch:     # pad the tail batch
                 buf[got:] = buf[got - 1]
                 scl[got:] = scl[got - 1]
             yield buf, scl, got
@@ -263,10 +305,12 @@ class VideoRunner:
         crop from the full-resolution frame exactly like the reference
         cascade, wrapperAuxiliary.hpp:324-337).  Batch-synchronous: the
         cascade has host geometry between device stages, so batches are not
-        overlapped.
+        overlapped.  Over a meshed `whole_body`, batch_size is the global
+        batch and this rank runs its own rows of each.
 
         Returns a list of (frame_index, WholeBodyResult).
         """
+        rows = whole_body.local_rows(batch_size)
         from openpose_tpu_torch.io.native_loader import (
             NativeVideoPump, available)
         if not available():
@@ -280,9 +324,13 @@ class VideoRunner:
             batch, idx0, n = [], 0, 0
 
             def flush(frames, start):
-                real = len(frames)
-                pad = batch_size - real
-                frames = frames + [frames[-1]] * pad
+                real = min(max(len(frames) - rows.start, 0),
+                           rows.stop - rows.start)
+                if real == 0:
+                    return
+                pad = batch_size - len(frames)
+                frames = (frames + [frames[-1]] * pad)[rows]
+                start += rows.start
                 for off, res in enumerate(
                         whole_body(np.stack(frames))[:real]):
                     results.append((start + off, res))

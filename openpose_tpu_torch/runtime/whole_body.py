@@ -1,7 +1,7 @@
-"""Whole body (pose + face + both hands) over a frame batch on one GPU.
+"""Whole body (pose + face + both hands) over a frame batch on one GPU, or
+over a device mesh.
 
-Counterpart of `openpose_tpu/runtime/whole_body.py::ShardedWholeBody`
-without the mesh:
+Counterpart of `openpose_tpu/runtime/whole_body.py::ShardedWholeBody`:
 
   frames [B, H, W, 3] uint8 on the device
     -> body stage (`PoseInference`: per-scale resize -> CNN -> merge -> NMS
@@ -11,6 +11,11 @@ without the mesh:
     -> face stage (`TopDownInference`: batched crop -> CNN -> argmax)
     -> hand stage (the same; left hands mirrored)
     -> host: crop keypoints mapped back to frame pixels.
+
+With a `mesh` the body, face and hand stages share it: every rank calls
+with its own rows of the global batch (`local_rows`), and the host
+assembly, KeepTopNPeople and the map-back run on each rank for its own
+frames.
 """
 
 from __future__ import annotations
@@ -42,7 +47,8 @@ class WholeBodyResult:
 
 
 class WholeBodyInference:
-    """Batched whole-body cascade on one device."""
+    """Batched whole-body cascade on one device, or on this rank's rows
+    over a mesh."""
 
     def __init__(self, pose_model: Model,
                  face_model: Optional[Model] = None,
@@ -55,27 +61,30 @@ class WholeBodyInference:
                  face_net_size: int = 368, hand_net_size: int = 368,
                  device: Union[str, torch.device, None] = None,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 **body_kwargs):
+                 mesh=None, **body_kwargs):
         """body_kwargs go to the body's `PoseInference` (thresholds,
-        net_bypass; a net_bypass body needs frame_hw=None)."""
+        net_bypass; a net_bypass body needs frame_hw=None).  mesh: one
+        `parallel.mesh.make_mesh` mesh for all three stages."""
         self.people_cap = people_cap
         self.body = PoseInference(
             pose_model, net_hw=net_hw, device=device, max_peaks=max_peaks,
             compute_dtype=compute_dtype, scale_number=scale_number,
-            scale_gap=scale_gap, frame_hw=frame_hw, **body_kwargs)
-        self.device = self.body.device
+            scale_gap=scale_gap, frame_hw=frame_hw, mesh=mesh, **body_kwargs)
+        self.device, self.mesh = self.body.device, mesh
+        self.local_rows = self.body.local_rows
         self.face = TopDownInference(
             face_model, face_net_size, people_cap, self.device,
-            compute_dtype) if face_model is not None else None
+            compute_dtype, mesh) if face_model is not None else None
         # hands: 2 crops per person (left mirrored, then right)
         self.hand = TopDownInference(
             hand_model, hand_net_size, 2 * people_cap, self.device,
-            compute_dtype) if hand_model is not None else None
+            compute_dtype, mesh) if hand_model is not None else None
         self._pose_enum = PoseModel(pose_model.info.name)
 
     def __call__(self, frames: Union[np.ndarray, torch.Tensor],
                  net_output=None) -> List[WholeBodyResult]:
-        """frames [B, H, W, 3] BGR uint8.  net_output: optional
+        """frames [B, H, W, 3] BGR uint8 (this rank's rows over a mesh).
+        net_output: optional
         [B, net_h/8, net_w/8, C] injected in place of the body CNN (needs a
         net_bypass body); the face and hand stages still crop `frames`
         around the people assembled from it."""

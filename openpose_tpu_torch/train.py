@@ -16,6 +16,12 @@ Gaussian part maps, background, and unit-vector limb bands at stride 8.
   forward and backward) or bfloat16 (the fast mode on the card: float32
   master weights, rounded to bfloat16 for each step's convolutions;
   autograd carries the gradients back through the rounding).
+* Over a mesh (`parallel/mesh.py`) every rank steps on its own rows of the
+  global batch.  The gradients and the loss are averaged over ``data`` in
+  one all-reduce: the original's loss is the mean over the whole global
+  batch, and the shards are equal.  With a ``model`` dimension above 1 the
+  weights, their gradients and Adam's moments are the rank's shards (Adam
+  is elementwise, so the update equals the full one).
 """
 
 from __future__ import annotations
@@ -25,10 +31,13 @@ import math
 from typing import Callable, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from openpose_tpu_torch import device as device_rule
 from openpose_tpu_torch.models import graph
 from openpose_tpu_torch.models.caffe_proto import NetSpec
+from openpose_tpu_torch.parallel import mesh as mesh_lib
 
 # learning rate of a step, counted from 0
 Schedule = Callable[[int], float]
@@ -114,10 +123,29 @@ def loss_fn(net: graph.PoseNet, images: torch.Tensor, targets: torch.Tensor,
     return torch.mean((pred - targets) ** 2)
 
 
-def make_train_step(compute_dtype: torch.dtype = torch.float32):
+def mean_over_data(net: graph.PoseNet, loss: torch.Tensor,
+                   mesh) -> torch.Tensor:
+    """Average `net`'s gradients (the rank's shards where they are
+    DTensors) and `loss` over the mesh's ``data`` dimension, in place, with
+    one all-reduce of one flat buffer; returns the averaged loss."""
+    grads = [p.grad.to_local() if isinstance(p.grad, DTensor) else p.grad
+             for p in net.parameters()]
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+    dist.all_reduce(flat, group=mesh.get_group("data"))
+    flat /= mesh_lib.size(mesh, "data")
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view(g.shape))
+        offset += g.numel()
+    return flat[-1]
+
+
+def make_train_step(compute_dtype: torch.dtype = torch.float32, mesh=None):
     """A `(state, images, targets) -> (state, loss)` step: loss, gradients
     and one Adam update at the schedule's rate for `state.step`.  The state
-    is updated in place; the loss stays on the device."""
+    is updated in place; the loss stays on the device.  With a `mesh` the
+    images and targets are this rank's rows, and the gradients and the loss
+    are averaged over its ``data`` dimension before the update."""
 
     def step(state: TrainState, images: torch.Tensor, targets: torch.Tensor):
         for group in state.optimizer.param_groups:
@@ -126,6 +154,8 @@ def make_train_step(compute_dtype: torch.dtype = torch.float32):
         with graph.full_f32_convs():       # the backward convolutions too
             loss = loss_fn(state.net, images, targets, compute_dtype)
             loss.backward()
+        if mesh is not None:
+            loss = mean_over_data(state.net, loss.detach(), mesh)
         state.optimizer.step()
         state.step += 1
         return state, loss.detach()
@@ -136,14 +166,20 @@ def make_train_step(compute_dtype: torch.dtype = torch.float32):
 def init_train_state(spec: NetSpec, generator: torch.Generator,
                      learning_rate: Union[float, Schedule] = 1e-4,
                      device: Union[str, torch.device, None] = None,
-                     params: Optional[graph.Params] = None) -> TrainState:
+                     params: Optional[graph.Params] = None,
+                     mesh=None) -> TrainState:
     """He-normal weights from `generator` (or `params`) on `device` (the
     card when None), Adam with zero moments, step 0.  learning_rate: a
-    constant, or a function of the step."""
+    constant, or a function of the step.  mesh: where its ``model``
+    dimension is above 1, the net holds this rank's shards of the weights
+    (`parallel.mesh.shard_params`) and Adam updates those."""
     device = device_rule.resolve(device)
     if params is None:
         params = graph.init_params(spec, generator)
     net = graph.PoseNet(spec, params, trainable=True).to(device)
+    if mesh_lib.size(mesh, "model") > 1:
+        net = graph.PoseNet(spec, mesh_lib.shard_params(mesh, net.params()),
+                            trainable=True)
     schedule = learning_rate if callable(learning_rate) \
         else (lambda step, lr=float(learning_rate): lr)
     optimizer = torch.optim.Adam(net.parameters(), lr=schedule(0),

@@ -1,12 +1,17 @@
-"""Training loop: keypoint data -> train steps on one device -> checkpoints.
+"""Training loop: keypoint data -> train steps -> checkpoints.
 
 Counterpart of `openpose_tpu/train_loop.py` around `train.py` (the CPM/PAF
 objective): data pipelines that turn COCO person-keypoint annotations or
 rendered synthetic scenes into (image, keypoint) batches, the loop, and
 periodic `.npz` checkpoints in the format both packages read
-(`models/checkpoint.py`).  One device: `TrainConfig.model_parallel` other
-than 1 needs the mesh (`parallel/mesh.py`) wired into the trainer, the
-port's last slice (ROADMAP Queue 1 item 7).
+(`models/checkpoint.py`).
+
+One device, or every rank of an initialised process group: then
+`make_mesh(model=TrainConfig.model_parallel)` spans the group, as the
+original's mesh spans all devices.  Every rank draws the same global batch
+from its (seeded) iterator and keeps its own rows, so the loss stream is the
+one-process run's; the host's cost of the draw is paid on every rank.  Rank
+0 alone writes the checkpoints, after the model shards are gathered.
 
 Throughput figures use the 3x-forward convention (forward, gradient of the
 parameters, gradient of the activations: three times the forward's
@@ -26,6 +31,7 @@ from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from openpose_tpu_torch import device as device_rule
 from openpose_tpu_torch import synthetic
@@ -33,6 +39,7 @@ from openpose_tpu_torch import train as train_mod
 from openpose_tpu_torch.models import checkpoint, graph
 from openpose_tpu_torch.ops import paf as paf_ops
 from openpose_tpu_torch.ops.resize import normalize_vgg
+from openpose_tpu_torch.parallel import mesh as mesh_lib
 from openpose_tpu_torch.params import POSE_MODEL_INFO, PoseModel
 
 # NVIDIA H100 SXM datasheet, dense TFLOP/s, by the convolutions' operand type
@@ -223,29 +230,43 @@ def learning_rate_of(config: TrainConfig):
     return config.learning_rate
 
 
+def group_mesh(config: TrainConfig, device: torch.device):
+    """The mesh a run trains over: the initialised process group's ranks
+    as (data, model=config.model_parallel); None without a group, where
+    model_parallel must be 1."""
+    if dist.is_initialized():
+        return mesh_lib.make_mesh(model=config.model_parallel,
+                                  device_type=device.type)
+    if config.model_parallel != 1:
+        raise ValueError(
+            f"model_parallel={config.model_parallel} needs a process group "
+            f"of a multiple of {config.model_parallel} ranks (parallel.mesh."
+            "process_group); this process has none")
+    return None
+
+
 class Trainer:
     """What `train` and `device_step_probe` share: the state on the device
     and the whole step from a uint8 batch (targets rendered and images
-    normalized on the device, then loss, gradients and the Adam update)."""
+    normalized on the device, then loss, gradients and the Adam update).
+    Over a mesh, `step` takes this rank's rows of the global batch
+    (`rows`)."""
 
     def __init__(self, config: TrainConfig, device: torch.device,
-                 compute_dtype: torch.dtype):
-        if config.model_parallel != 1:
-            raise NotImplementedError(
-                f"model_parallel={config.model_parallel}: the port trains on "
-                "one device; wiring the mesh (parallel/mesh.py) into the "
-                "trainer is the last slice, ROADMAP Queue 1 item 7")
+                 compute_dtype: torch.dtype, mesh=None):
         self.config = config
         self.device = device
+        self.mesh = mesh
+        self.rows = mesh_lib.local_rows(mesh, config.batch_size)
         self.info = POSE_MODEL_INFO[config.model]
         self.spec = graph.load_spec(self.info.spec)
         self.state = train_mod.init_train_state(
             self.spec, torch.Generator().manual_seed(0), learning_rate_of(config),
-            device)
+            device, mesh=mesh)
         pairs, map_idx = paf_ops.pair_tables(self.info)
         self.pairs = torch.from_numpy(pairs).to(device)
         self.map_idx = torch.from_numpy(map_idx).to(device)
-        self.base_step = train_mod.make_train_step(compute_dtype)
+        self.base_step = train_mod.make_train_step(compute_dtype, mesh)
         self.fwd_gflops = sum(graph.count_flops(
             self.spec, config.image_size).values()) / 1e9
         # the yardstick of a run on a card; a CPU run has none
@@ -262,8 +283,14 @@ class Trainer:
             self.state, normalize_vgg(images.to(torch.float32)), targets)
         return loss
 
+    def full_params(self):
+        """The weights as full tensors (the model shards gathered: every
+        rank calls this)."""
+        return mesh_lib.gather_params(self.state.params)
+
     def rates(self, seconds_per_step: float, prefix: str = "") -> dict:
-        """Throughput of a step time by the 3x-forward convention."""
+        """Throughput of a step time by the 3x-forward convention, of the
+        global batch."""
         img_s = self.config.batch_size / seconds_per_step
         tflops = 3.0 * self.fwd_gflops * img_s / 1e3
         return {f"{prefix}img_s": img_s,
@@ -288,19 +315,23 @@ def device_step_probe(config: TrainConfig, n: int = 10, warmup: int = 3,
 
     Returns {device_step_ms, device_img_s, device_train_tflops,
     device_train_mfu}: the 3x-forward FLOPs convention, the share of the
-    H100 datasheet peak for `compute_dtype`'s operands (None on a CPU)."""
+    H100 datasheet peak for `compute_dtype`'s operands (None on a CPU).
+    Over an initialised process group it times the meshed step (`train`'s
+    rule), each rank on its rows of the global batch."""
     device = device_rule.resolve(device)
-    trainer = Trainer(config, device, compute_dtype)
+    trainer = Trainer(config, device, compute_dtype,
+                      group_mesh(config, device))
     h, w = config.image_size
     rng = np.random.RandomState(0)
     images = torch.from_numpy(rng.randint(
-        0, 255, (config.batch_size, h, w, 3)).astype(np.uint8)).to(device)
+        0, 255, (config.batch_size, h, w, 3)).astype(np.uint8))
     kp = np.zeros((config.batch_size, 3, trainer.info.num_parts, 3),
                   np.float32)
     kp[..., 0] = rng.uniform(40, w - 40, kp.shape[:-1])
     kp[..., 1] = rng.uniform(40, h - 40, kp.shape[:-1])
     kp[..., 2] = 1.0
-    keypoints = torch.from_numpy(kp).to(device)
+    images = images[trainer.rows].to(device)
+    keypoints = torch.from_numpy(kp[trainer.rows]).to(device)
 
     for _ in range(warmup):
         trainer.step(images, keypoints)
@@ -338,12 +369,21 @@ def train(config: TrainConfig, data: Iterator, verbose: bool = True,
 
     stats_out: if given, filled with steady-state throughput numbers
     ({img_s, step_ms, train_tflops, train_mfu, fwd_gflops_img,
-    peak_tflops}) measured from step 1 onward (step 0 pays cuDNN's
-    algorithm search), and `losses`, {step: loss} of the first, every 50th
-    and the last step."""
+    peak_tflops}, of the global batch) measured from step 1 onward (step 0
+    pays cuDNN's algorithm search), and `losses`, {step: loss} of the
+    first, every 50th and the last step.
+
+    Over an initialised process group every rank calls this with the same
+    config and an iterator of the same seed (`group_mesh`): each steps on
+    its own rows, the losses are the global batch's, rank 0 alone prints
+    and writes checkpoints, and every rank returns its own state (the
+    rank's shards where `model_parallel` > 1; `Trainer.full_params`)."""
     device = device_rule.resolve(device)
-    trainer = Trainer(config, device, compute_dtype)
+    mesh = group_mesh(config, device)
+    trainer = Trainer(config, device, compute_dtype, mesh)
     state, info = trainer.state, trainer.info
+    lead = mesh is None or dist.get_rank() == 0
+    verbose = verbose and lead
     ckpt_dir = pathlib.Path(config.checkpoint_dir)
     losses: Dict[int, float] = {}
     t0 = time.time()
@@ -356,8 +396,9 @@ def train(config: TrainConfig, data: Iterator, verbose: bool = True,
             # plain cast would add a ~-0.5 intensity bias
             images = torch.clamp(torch.round(images), 0, 255).to(torch.uint8)
         loss = trainer.step(
-            images.to(device, non_blocking=True),
-            torch.as_tensor(keypoints, dtype=torch.float32).to(device))
+            images[trainer.rows].to(device, non_blocking=True),
+            torch.as_tensor(keypoints, dtype=torch.float32)[trainer.rows]
+            .to(device))
         if step == 0:
             _sync(device)
             t_steady = time.time()
@@ -370,7 +411,9 @@ def train(config: TrainConfig, data: Iterator, verbose: bool = True,
         if (step + 1) % config.checkpoint_every == 0 \
                 or step == config.steps - 1:
             path = ckpt_dir / f"{info.name}_step{step + 1}.npz"
-            checkpoint.save(str(path), state.params)
+            params = trainer.full_params()
+            if lead:
+                checkpoint.save(str(path), params)
             if verbose:
                 print(f"saved {path}")
     _sync(device)

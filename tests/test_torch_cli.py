@@ -180,9 +180,14 @@ def test_fast_path_eligible_agrees(over):
 
 
 def test_num_gpu_above_one_raises_and_start_picks_a_device():
+    """--num_gpu above the visible cards stops, naming the sizes (on the
+    CPU, as `main(..., device="cpu")`, the ranks are gloo processes)."""
     argv = ["--image_dir", "nowhere", "--num_gpu", "2"]
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(argv, device="cpu")
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(SystemExit, match=(
+                "--num_gpu 2 --num_gpu_start 0: only "
+                f"{torch.cuda.device_count()} CUDA devices available")):
+            cli.main(argv)
     args = cli.build_parser().parse_args(["--num_gpu_start", "1"])
     if torch.cuda.device_count() < 2:
         with pytest.raises(SystemExit, match="CUDA devices available"):
@@ -273,6 +278,63 @@ def test_batched_fast_path_equals_jax(tmp_path, inputs):
                      {"--write_json": "json"})
     assert_people_json_close(paths["mine"]["--write_json"],
                              paths["theirs"]["--write_json"])
+
+
+def test_num_gpu_two_equals_one_gpu_and_jax(tmp_path, inputs):
+    """--num_gpu 2 on the batched path: two gloo ranks, each on its row of
+    every batch of two, write the people JSON of their own frames, and
+    rank 0 the one COCO file; the same as --num_gpu 1 and as the JAX CLI's
+    --num_gpu 2 over two of its virtual devices."""
+    if not native_loader.available():
+        pytest.skip("native frame pump not built")
+    outputs = {"--write_json": "json", "--write_coco_json": "coco.json"}
+    paths = run_both(tmp_path, inputs, ["--batch", "2", "--num_gpu", "2"],
+                     outputs)
+    mine, theirs = paths["mine"], paths["theirs"]
+    people = assert_people_json_close(mine["--write_json"],
+                                      theirs["--write_json"])
+    one = tmp_path / "one"
+    assert cli.main(["--image_dir", inputs["images"], "--model_folder",
+                     inputs["models"], f"--net_resolution={NET}", "--fp32",
+                     "--batch", "2", "--num_gpu", "1",
+                     "--write_json", str(one / "json"),
+                     "--write_coco_json", str(one / "coco.json")],
+                    device="cpu") == 0
+    assert_people_json_close(mine["--write_json"], one / "json")
+    assert sorted(p.name for p in (tmp_path / "mine").iterdir()) \
+        == ["coco.json", "json"]
+    got = json.loads(mine["--write_coco_json"].read_text())
+    for want in (json.loads(theirs["--write_coco_json"].read_text()),
+                 json.loads((one / "coco.json").read_text())):
+        assert len(got) == len(want) == people
+        for g, w in zip(got, want):
+            assert (g["image_id"], g["category_id"]) \
+                == (w["image_id"], w["category_id"])
+            assert_keypoints_close(g["keypoints"], w["keypoints"], "coco")
+            assert g["score"] == pytest.approx(w["score"], abs=1e-3)
+
+
+def test_a_failing_rank_makes_main_return_non_zero(tmp_path, inputs, capfd):
+    """The second of three files is no image: the rank that owns it (rank
+    1 of 2 at --batch 2) fails, the other is stopped, and `main` returns
+    1."""
+    if not native_loader.available():
+        pytest.skip("native frame pump not built")
+    images = tmp_path / "images"
+    images.mkdir()
+    for i, frame in enumerate(inputs["frames"]):
+        path = images / f"scene_{i:03d}.png"
+        if i == 1:
+            path.write_bytes(b"not an image")
+        else:
+            cv2.imwrite(str(path), frame)
+    argv = ["--image_dir", str(images), "--model_folder", inputs["models"],
+            f"--net_resolution={NET}", "--fp32", "--batch", "2",
+            "--num_gpu", "2", "--write_json", str(tmp_path / "json")]
+    assert cli.main(argv, device="cpu") == 1
+    assert "decode failed" in capfd.readouterr().err
+    with pytest.raises(SystemExit, match="--smooth_keyframes"):
+        cli.main(argv + ["--smooth_keyframes", "3"], device="cpu")
 
 
 def test_cli_takes_frames_from_the_producer_it_finds_at_call_time(

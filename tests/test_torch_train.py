@@ -631,11 +631,15 @@ def test_bf16_step_differentiates():
 
 
 def test_model_parallel_is_refused():
+    """Without a process group there is no mesh to shard the model over:
+    model_parallel other than 1 is refused, naming what it needs (the
+    meshed trainer is held in tests/test_torch_sharded.py)."""
     config = train_loop.TrainConfig(model=PoseModel.MPI_15_4,
                                     model_parallel=2, steps=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    match = "model_parallel=2 needs a process group of a multiple of 2 ranks"
+    with pytest.raises(ValueError, match=match):
         train_loop.train(config, iter([]), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(ValueError, match=match):
         train_loop.device_step_probe(config, device="cpu")
 
 
