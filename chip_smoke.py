@@ -86,7 +86,17 @@ with a non-zero exit when it fails:
    sharded `bundle_adjust` over a one-rank NCCL mesh equal to the
    unsharded one; `accuracy3d.noise_sweep` card against CPU; the VisualSFM
    `.sift` and match files written and read back (the calibration modes
-   need OpenCV, which the card's machine lacks).
+   need OpenCV, which the card's machine lacks);
+16. tools (after the cli phase, on the net the train phase trained): the
+   user scripts and the tutorials of `openpose_tpu_torch/scripts/` and
+   `openpose_tpu_torch/examples/`, frames and cameras in memory:
+   `synthetic_eval` (AP floor 0.95, one fused launch a batch),
+   `threed_eval` (the 3-D gates), tutorial 09 with the fused kernel held
+   to its plain version on its call, tutorials 01-05, 07 and 08 held to
+   `Wrapper.process` and to each other, `train_to_ap --steps 50` (the JAX
+   script's keys), and top-down refinement on small people: the people it
+   replaces and the gate that stops each other candidate.  Tutorial 06
+   reads COCO images with OpenCV and is not run.
 
 The kernel phase also holds the fused kernel to its plain version at the
 refinement's shape (8 crops of 368x368, thresholds 0.02 and 0.01).
@@ -109,9 +119,10 @@ of its bytes (each input read once, each output written once) over the
 card's memory rate and its float operations (counted from this run's peak
 counts and line lengths) over the card's float32 rate.  The line before the
 last is the kernel summary, the last line {"ok": true, "device": {...}}.  Details go to build/chip_smoke/chip_smoke.json.
-The default run took 597.9 s on one H100 80GB HBM3 at 700 W, the build
-and every phase included (the train phase's 1500 steps 156.6 s, the mesh
-phase 38.3 s).  `--train-to-ap` takes 175 s; `--mesh-scaling` took 234 s
+The default run took 635.8 s on one H100 80GB HBM3 at 700 W, the build
+and every phase included (597.9 s before the tools phase; the train
+phase's 1500 steps 156.6 s, the mesh phase 38.3 s, the tools phase
+18.3 s).  `--train-to-ap` takes 175 s; `--mesh-scaling` took 234 s
 on four of them.
 """
 
@@ -316,6 +327,31 @@ def fused_bound(sources, peaks, pairs, map_idx):
     ms, by = bound(n_bytes, n_ops)
     return {"bound_ms": ms, "bound_by": by, "lines": lines,
             "samples": samples, "bytes": n_bytes, "operations": n_ops}
+
+
+def fused_against_plain(args, device, iters=20):
+    """The fused kernel against its plain version on one call's arguments
+    (`paf_cuda.paf_scores_fused`'s): the largest difference, the scores
+    that differ, the accepted lines, both times and the bound."""
+    import torch
+    from openpose_tpu_torch.ops import paf, paf_cuda
+    sources, peaks, pairs, map_idx = args[0], args[3], args[4], args[5]
+    with torch.inference_mode():
+        got = paf_cuda.paf_scores_fused(*args)
+        want = paf.paf_scores_multiscale_reference(*args)
+        out = {
+            "max_abs_err": float((got - want).abs().max()),
+            "mismatches": int((got != want).sum()),
+            "accepted": int((want > 0).sum()),
+            "peaks_per_part_mean": float(peaks[:, :, 0, 0].mean()),
+            "ms": timed(lambda: paf_cuda.paf_scores_fused(*args), 3, iters,
+                        device),
+            "plain_ms": timed(
+                lambda: paf.paf_scores_multiscale_reference(*args), 1, 2,
+                device),
+            "bound": fused_bound(sources, peaks, pairs, map_idx)}
+    out["share_of_bound"] = out["bound"]["bound_ms"] / out["ms"]
+    return out
 
 
 def sampler_bound(lows, my):
@@ -1536,7 +1572,7 @@ def accuracy_phase(device, model, n_images=64, net_hws=((368, 656), (176, 320)),
     import numpy as np
     import torch
     from openpose_tpu_torch import accuracy, synthetic, train
-    from openpose_tpu_torch.ops import paf, paf_cuda
+    from openpose_tpu_torch.ops import paf_cuda
     from openpose_tpu_torch.parallel.inference import PoseInference
 
     out = {}
@@ -1579,23 +1615,9 @@ def accuracy_phase(device, model, n_images=64, net_hws=((368, 656), (176, 320)),
     nms_thr, inter_thr, inter_min = inference.thresholds
     with torch.inference_mode():
         peaks, _ = inference.decode([net_out])
-        args = ([net_out], [1.0], net_hw, peaks, inference.pairs,
-                inference.map_idx, inter_thr, inter_min, nms_thr)
-        got = paf_cuda.paf_scores_fused(*args)
-        want = paf.paf_scores_multiscale_reference(*args)
-        kernel = {
-            "max_abs_err": float((got - want).abs().max()),
-            "mismatches": int((got != want).sum()),
-            "accepted": int((want > 0).sum()),
-            "peaks_per_part_mean": float(peaks[:, :, 0, 0].mean()),
-            "ms": timed(lambda: paf_cuda.paf_scores_fused(*args), 3, 20,
-                        device),
-            "plain_ms": timed(
-                lambda: paf.paf_scores_multiscale_reference(*args), 1, 2,
-                device),
-            "bound": fused_bound([net_out], peaks, inference.pairs,
-                                 inference.map_idx)}
-    kernel["share_of_bound"] = kernel["bound"]["bound_ms"] / kernel["ms"]
+    kernel = fused_against_plain(
+        ([net_out], [1.0], net_hw, peaks, inference.pairs, inference.map_idx,
+         inter_thr, inter_min, nms_thr), device)
     kernel["launches_per_batch"] = launches_per_call(
         "accuracy loop, one batch", lambda: inference(net_out))[
             "paf_scores_fused"]
@@ -1882,7 +1904,7 @@ def trained_frame_kernel_check(device, trained, image_size, seed=1,
     import numpy as np
     import torch
     from openpose_tpu_torch import accuracy
-    from openpose_tpu_torch.ops import paf, paf_cuda
+    from openpose_tpu_torch.ops import paf
     from openpose_tpu_torch.pose import scaler
     from openpose_tpu_torch.pose.extractor import PoseExtractor
 
@@ -1898,24 +1920,12 @@ def trained_frame_kernel_check(device, trained, image_size, seed=1,
     with torch.inference_mode():
         sources = extractor.net_outputs(image, plan)
         peaks, _ = extractor.decode(sources, plan, 0.5)
-        args = (sources, plan.scale_input_to_net, (h, w), peaks, pairs,
-                map_idx, cp.inter_threshold, cp.inter_min_above_threshold,
-                cp.nms_threshold)
-        got = paf_cuda.paf_scores_fused(*args)
-        want = paf.paf_scores_multiscale_reference(*args)
-        out = {
-            "maps": list(sources[0].shape), "placed": len(placed),
-            "max_abs_err": float((got - want).abs().max()),
-            "mismatches": int((got != want).sum()),
-            "accepted": int((want > 0).sum()),
-            "peaks_per_part_mean": float(peaks[:, :, 0, 0].mean()),
-            "ms": timed(lambda: paf_cuda.paf_scores_fused(*args), 3, iters,
-                        device),
-            "plain_ms": timed(
-                lambda: paf.paf_scores_multiscale_reference(*args), 1, 2,
-                device),
-            "bound": fused_bound(sources, peaks, pairs, map_idx)}
-    out["share_of_bound"] = out["bound"]["bound_ms"] / out["ms"]
+    out = dict(maps=list(sources[0].shape), placed=len(placed),
+               **fused_against_plain(
+                   (sources, plan.scale_input_to_net, (h, w), peaks, pairs,
+                    map_idx, cp.inter_threshold,
+                    cp.inter_min_above_threshold, cp.nms_threshold),
+                   device, iters))
     log(f"fused kernel on a held-out frame of the trained net (1 x "
         f"{out['maps'][1]}x{out['maps'][2]} maps): tol={KERNEL_TOL} "
         + json.dumps(out))
@@ -2540,6 +2550,326 @@ def cli_phase(device, checkpoint, n_frames=16, image_size=(184, 328),
     return out
 
 
+def tutorial(name):
+    """A tutorial of the port by its file name (they start with digits)."""
+    import importlib
+    return importlib.import_module(f"openpose_tpu_torch.examples.{name}")
+
+
+def quiet(fn, *args, **kwargs):
+    """fn(*args, **kwargs) with what it prints kept; (result, text)."""
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args, **kwargs)
+    return result, out.getvalue()
+
+
+@contextlib.contextmanager
+def merge_gates(gates):
+    """For the length of the block, each call of `refine._merge_refined`
+    appends to `gates` which of its gates decided it (the same tests in the
+    same order, read before the merge writes): "replaced", "fewer than 75%
+    of the parts", "distance and IoU disagree" or "distance over 0.1 x
+    |rect corner|"."""
+    import numpy as np
+    from openpose_tpu_torch.pose import refine
+    merge = refine._merge_refined
+
+    def gate(kp_all, person, cand_kp, nms_thr):
+        orig = kp_all[person]
+        n_orig = int((orig[:, 2] > nms_thr).sum())
+        rect = refine._keypoints_rectangle(orig, nms_thr)
+        kept = [c for c in range(cand_kp.shape[0])
+                if (cand_kp[c][:, 2] > nms_thr).sum() >= 0.75 * n_orig]
+        if not kept:
+            return "fewer than 75% of the parts"
+        dist = [refine._distance_average(orig, cand_kp[c], nms_thr)
+                for c in kept]
+        iou = [refine._rect_iou(rect, refine._keypoints_rectangle(
+            cand_kp[c], nms_thr)) for c in kept]
+        if int(np.argmin(dist)) != int(np.argmax(iou)):
+            return "distance and IoU disagree"
+        ratio = 0.1 * float(np.hypot(rect[0], rect[1])) if rect else 0.0
+        return "replaced" if min(dist) < ratio \
+            else "distance over 0.1 x |rect corner|"
+
+    def recording(kp_all, scores_all, person, cand_kp, cand_sc, nms_thr):
+        reason = gate(kp_all, person, cand_kp, nms_thr)
+        replaced = merge(kp_all, scores_all, person, cand_kp, cand_sc,
+                         nms_thr)
+        assert replaced == (reason == "replaced"), (replaced, reason)
+        gates.append(reason)
+        return replaced
+
+    refine._merge_refined = recording
+    try:
+        yield
+    finally:
+        refine._merge_refined = merge
+
+
+def tools_phase(device, checkpoint, model, eval_images=16,
+                image_size=(184, 328), n_frames=8, t2ap_steps=50):
+    """The user scripts and the tutorials of `openpose_tpu_torch` on the
+    card, frames and cameras in memory (the card's machine has no OpenCV,
+    so nothing is rendered or read from files):
+    (a) `scripts/synthetic_eval.main` on `eval_images` scenes at its
+        defaults (368x656, f32): AP at the accuracy phase's floor (0.95),
+        one fused launch a batch;
+    (b) `scripts/threed_eval.main` at its defaults (8 people x 4 cameras):
+        the threed phase's gates on the sweep and on bundle adjustment;
+    (c) tutorial 09 on its injected 2-person net output (`model`'s post
+        chain): both people at the means the same tutorial prints on the
+        CPU, one fused launch, and the fused kernel held to its plain
+        version on that call's own arguments;
+    (d) tutorials 01, 02, 03, 07, 08 on one frame of the trained net's
+        people (`checkpoint`, -1x176, f32): 02's body, 03's keypoints and
+        the people of `Wrapper.process` agree with 01's, 07 and 08 on 02's
+        face and hand rectangles give 02's faces and hands; 04 over
+        `n_frames` frames in memory through `AsyncPipeline`, equal to
+        `Wrapper.process` frame by frame; 05 over three views of a rig
+        with its camera matrices in memory (06 reads COCO images with
+        OpenCV and does not run here);
+    (e) `scripts/train_to_ap.main --steps t2ap_steps` at 184x328, a
+        plumbing check of the script: its JSON has every key of the JAX
+        script's TRAIN2AP.json;
+    (f) top-down refinement on people the net sees small (heights 50-80
+        px in the 184x328 frame, where the 320x176 crop sees them at the
+        trained size): how many people it replaces, and which gate of
+        `refine._merge_refined` stops each candidate that it does not."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from openpose_tpu_torch import accuracy, synthetic
+    from openpose_tpu_torch.io import producers
+    from openpose_tpu_torch.ops import paf_cuda
+    from openpose_tpu_torch.pose import scaler
+    from openpose_tpu_torch.pose.extractor import PoseExtractor
+    from openpose_tpu_torch.scripts import (synthetic_eval, threed_eval,
+                                            train_to_ap)
+    from openpose_tpu_torch.wrapper import (FaceConfig, HandConfig,
+                                            PoseConfig, Wrapper)
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="tools_phase_", dir=OUT_DIR))
+    out = {}
+    log("tools: tutorial 06 (COCO training) is not run on the card: "
+        "coco_data_iterator decodes images with OpenCV, which this machine "
+        "lacks")
+    reset_launches()
+    try:
+        # (a) the closed accuracy loop through its script
+        t0 = time.perf_counter()
+        rc, _ = quiet(synthetic_eval.main, [
+            "--images", str(eval_images), "--out",
+            str(work / "synthetic_eval.json")])
+        a = json.loads((work / "synthetic_eval.json").read_text())
+        a.update(rc=rc, seconds=time.perf_counter() - t0,
+                 fused_launches=paf_cuda.paf_scores_fused.launches,
+                 batches=-(-eval_images // 8))
+        out["a"] = a
+        log(f"tools (a) scripts/synthetic_eval, {eval_images} images at "
+            f"368x656, f32: {json.dumps(a)} (AP floor 0.95)")
+        assert rc == 0 and a["AP"] >= 0.95, a
+        assert a["fused_launches"] == a["batches"], a
+
+        # (b) the 3-D table through its script
+        t0 = time.perf_counter()
+        rc, _ = quiet(threed_eval.main, ["--out", str(work / "bench3d.json")])
+        b = json.loads((work / "bench3d.json").read_text())
+        b.update(rc=rc, seconds=time.perf_counter() - t0)
+        out["b"] = b
+        log(f"tools (b) scripts/threed_eval at its defaults: {json.dumps(b)}")
+        assert rc == 0, b
+        for row in b["triangulation_sweep"]:
+            assert row["reprojection_px"] < row["reference_gate_px"], row
+            if row["pixel_noise"] == 0.0:
+                assert row["rmse_mm"] < 0.5, row
+            elif row["pixel_noise"] == 1.0:
+                assert row["rmse_mm"] < 10.0, row
+        ba = b["bundle_adjustment"]
+        assert ba["cam_rot_err_deg_out"] < 0.2 * ba["cam_rot_err_deg_in"], ba
+        assert ba["rmse_mm_after_ba"] < 0.7 * ba["rmse_mm_before_ba"], ba
+
+        # (c) tutorial 09 on the card and on the CPU
+        t09 = tutorial("09_keypoints_from_heatmaps")
+        before = paf_cuda.paf_scores_fused.launches
+        (pred09, means), printed = quiet(t09.keypoints_from_heatmaps,
+                                         device=device, model=model)
+        launches09 = paf_cuda.paf_scores_fused.launches - before
+        (_, cpu_means), cpu_printed = quiet(t09.keypoints_from_heatmaps,
+                                            device="cpu")
+        c = {"people": int(pred09.keypoints.shape[0]), "means": means,
+             "cpu_means": cpu_means, "prints_as_on_cpu": printed
+             == cpu_printed, "fused_launches": launches09}
+        log(f"tools (c) tutorial 09: {json.dumps(c)}")
+        assert c["people"] == 2 and launches09 == 1, c
+        assert all(abs(g - w) < 0.05 for g, w in zip(means, cpu_means)), c
+        assert all(abs(g - x) < 10.0 for g, x in zip(means, t09.INJECTED_X))
+
+        # (d) the tutorials on a frame of the trained net's people
+        people = accuracy.held_out_scenes(1, image_size, (1, 3), seed=9)[0][0]
+        frame = synthetic_frame(people, image_size)
+        pose = PoseConfig(net_resolution=(-1, 176), caffemodel=checkpoint,
+                          compute_dtype="float32")
+        reference = Wrapper(pose, device=device)
+        want = reference.process(frame)
+
+        def close(got, expect):
+            got, expect = np.asarray(got), np.asarray(expect)
+            return got.shape == expect.shape and bool(np.allclose(
+                got, expect, atol=1e-3))
+        (_, d1), _ = quiet(tutorial("01_body_from_image").body_from_image,
+                           frame, pose, device=device)
+        (_, d2), _ = quiet(
+            tutorial("02_whole_body_from_image").whole_body_from_image,
+            frame, pose, FaceConfig(enable=True), HandConfig(enable=True),
+            device=device)
+        pred3, _ = quiet(tutorial("03_heatmaps_from_image")
+                         .heatmaps_from_image, frame, pose, device=device)
+        faces, _ = quiet(tutorial("07_face_from_rectangles")
+                         .face_from_rectangles, frame, d2.face_rectangles,
+                         device=device)
+        (left, right), _ = quiet(
+            tutorial("08_hand_from_rectangles").hand_from_rectangles, frame,
+            d2.hand_rectangles, device=device)
+        d = {"placed": len(people), "people": len(d1.pose_keypoints),
+             "01_as_process": close(d1.pose_keypoints, want.pose_keypoints),
+             "02_body_as_01": close(d2.pose_keypoints, d1.pose_keypoints),
+             "02_shapes": [list(np.shape(k)) for k in (
+                 d2.face_keypoints, d2.hand_left_keypoints,
+                 d2.hand_right_keypoints)],
+             "03_heatmaps": list(pred3.heatmaps.shape),
+             "03_keypoints_as_01": close(pred3.keypoints, d1.pose_keypoints),
+             "03_heatmaps_finite": bool(np.isfinite(pred3.heatmaps).all()),
+             "07_as_02": close(faces, d2.face_keypoints),
+             "08_as_02": close(left, d2.hand_left_keypoints)
+             and close(right, d2.hand_right_keypoints)}
+
+        scenes = accuracy.held_out_scenes(n_frames, image_size, (1, 3),
+                                          seed=11)
+        images = [img for _, img in scenes]
+        before = paf_cuda.paf_scores_fused.launches
+        (stats, results), _ = quiet(
+            tutorial("04_video_async").video_async,
+            ([producers.Frame(image=img, frame_id=i)]
+             for i, img in enumerate(images)), pose, device=device)
+        d["04_fused_launches_per_frame"] = (
+            paf_cuda.paf_scores_fused.launches - before) / n_frames
+        d["04_fps"] = stats.fps
+        d["04_as_process"] = sum(
+            close(got, reference.process(img, i).pose_keypoints)
+            for i, (got, img) in enumerate(zip(results, images)))
+
+        focal, depth, baseline = 300.0, 4.0, 0.1
+        intrinsics = np.array([[focal, 0, image_size[1] / 2],
+                               [0, focal, image_size[0] / 2], [0, 0, 1]])
+        cams = np.stack([intrinsics @ np.hstack(
+            [np.eye(3), [[-baseline * v], [0], [0]]]) for v in range(3)])
+        views = []
+        for v in range(3):
+            moved = people.copy()
+            moved[..., 0] -= focal * baseline * v / depth
+            views.append(synthetic_frame(moved, image_size))
+        (_, kp3d), _ = quiet(tutorial("05_multiview_3d").multiview_3d,
+                             views, cams, pose, device=device)
+        seen = kp3d[..., 3] > 0
+        d["05_shape"] = list(kp3d.shape)
+        d["05_median_depth"] = float(np.median(kp3d[..., 2][seen])) \
+            if seen.any() else None
+        out["d"] = d
+        log(f"tools (d) tutorials 01-05, 07, 08 on the trained net's people "
+            f"at {image_size}, -1x176, f32: {json.dumps(d)}")
+        assert d["people"] >= 1 and d["01_as_process"], d
+        assert d["02_body_as_01"] and d["03_keypoints_as_01"], d
+        assert d["02_shapes"] == [[d["people"], 70, 3], [d["people"], 21, 3],
+                                  [d["people"], 21, 3]], d
+        assert d["03_heatmaps"][:2] == [22, 40] and d["03_heatmaps_finite"]
+        assert d["07_as_02"] and d["08_as_02"], d
+        assert stats.frames == n_frames and d["04_as_process"] == n_frames, d
+        assert d["04_fused_launches_per_frame"] == 1, d
+        assert kp3d.ndim == 3 and kp3d.shape[1:] == (25, 4) and seen.any(), d
+        assert np.isfinite(kp3d).all(), d
+
+        # (e) train_to_ap's script as plumbing
+        t0 = time.perf_counter()
+        rc, _ = quiet(train_to_ap.main, [
+            "--steps", str(t2ap_steps), "--image_size",
+            f"{image_size[0]}x{image_size[1]}", "--out",
+            str(work / "train2ap.json")])
+        e = json.loads((work / "train2ap.json").read_text())
+        keys = set(json.loads((ROOT / "TRAIN2AP.json").read_text()))
+        out["e"] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                    "missing_keys": sorted(keys - set(e)),
+                    **{k: e[k] for k in ("AP", "AP50", "steps", "img_s",
+                                         "device_step_ms")}}
+        log(f"tools (e) scripts/train_to_ap --steps {t2ap_steps} at "
+            f"{image_size}: {json.dumps(out['e'])}")
+        assert rc == 0 and not out["e"]["missing_keys"], out["e"]
+
+        # (f) refinement where the crop sees more than the frame
+        rng = np.random.RandomState(13)
+        small = []
+        for _ in range(n_frames):
+            placed = synthetic.random_people(
+                rng, 2, image_size, height_range=(50.0, 80.0),
+                min_spacing=60.0)
+            small.append((placed, synthetic.render_scene_image(
+                placed, image_size, rng=rng)))
+        refined = Wrapper(dataclasses.replace(pose, top_down_refinement=True),
+                          device=device)
+        gates = []
+        replaced, found = 0, 0
+        before = paf_cuda.paf_scores_fused.launches
+        with merge_gates(gates):
+            for placed, img in small:
+                plain = reference.process(img).pose_keypoints
+                after = refined.process(img).pose_keypoints
+                found += len(plain)
+                replaced += sum(not np.array_equal(p, q)
+                                for p, q in zip(plain, after))
+        f = {"frames": n_frames, "placed": 2 * n_frames, "found": found,
+             "candidates_merged": len(gates), "replaced": replaced,
+             "gates": {g: gates.count(g) for g in sorted(set(gates))},
+             "fused_launches_per_frame": (
+                 paf_cuda.paf_scores_fused.launches - before) / n_frames}
+        out["f"] = f
+        log(f"tools (f) refinement on people 50-80 px tall at {image_size}, "
+            f"the trained net: {json.dumps(f)}")
+        assert gates.count("replaced") == replaced, f
+        out["launches"] = read_launches("tools path",
+                                        paf_cuda.paf_scores_fused)
+
+        # (c) the fused kernel on the tutorial's own call, after the counts
+        # are read: these launches only compare
+        h, w = t09.FRAME_HW
+        extractor = PoseExtractor(model, compute_dtype=torch.float32,
+                                  device=device)
+        plan = scaler.extract_scales((w, h), (w, h))
+        cp = extractor.connect
+        sources = [torch.tensor(t09.two_person_net_output(model.info, device),
+                                device=device)[None]]
+        with torch.inference_mode():
+            peaks, _ = extractor.decode(sources, plan, 0.5)
+        assert np.array_equal(peaks[0].cpu().numpy(), pred09.peaks)
+        kernel = fused_against_plain(
+            (sources, plan.scale_input_to_net, (h, w), peaks,
+             extractor._pairs_dev, extractor._map_idx_dev,
+             cp.inter_threshold, cp.inter_min_above_threshold,
+             cp.nms_threshold), device)
+        out["kernel_on_tutorial_09"] = kernel
+        log(f"fused kernel on tutorial 09's call (1 x {h // 8}x{w // 8} "
+            f"maps): tol={KERNEL_TOL} " + json.dumps(kernel))
+        assert kernel["mismatches"] == 0 \
+            and kernel["max_abs_err"] <= KERNEL_TOL, kernel
+        assert kernel["accepted"] > 0, kernel
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 @contextlib.contextmanager
 def one_rank_group(device):
     """A process group of this one process (NCCL on a card, gloo on the
@@ -3099,6 +3429,8 @@ def main() -> int:
     report["train"] = train_phase(device)
     try:
         report["cli"] = cli_phase(device, report["train"]["checkpoint"])
+        report["tools"] = tools_phase(device, report["train"]["checkpoint"],
+                                      model)
     finally:
         shutil.rmtree(pathlib.Path(report["train"]["checkpoint"]).parent,
                       ignore_errors=True)
@@ -3120,11 +3452,12 @@ def main() -> int:
         "launches": sum(report[phase]["launches"]["paf_scores_fused"]
                         for phase in ("main_path", "whole_body", "wrapper",
                                       "runner", "accuracy", "train", "cli",
-                                      "mesh")),
+                                      "tools", "mesh")),
         "max_abs_err": max(kernel["max_abs_err"], report["main_path"][
             "breakdown"]["paf_main_path_max_abs_err"], report["accuracy"][
             "kernel_on_loop_batch"]["max_abs_err"], report["train"][
-            "kernel_on_trained_frame"]["max_abs_err"]),
+            "kernel_on_trained_frame"]["max_abs_err"], report["tools"][
+            "kernel_on_tutorial_09"]["max_abs_err"]),
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound"]["bound_ms"],
         "bound_by": kernel["bound"]["bound_by"], "library_ms": None}, {

@@ -349,7 +349,9 @@ def run_fast_path(args, device=None, mesh=None) -> int:
     mesh: a data mesh of `run_ranks`' ranks; this rank then processes its
     own rows of each global batch (the batch rounded up to tile the mesh)
     and writes its own frames' JSON and keypoint files, and rank 0 writes
-    the COCO file of every frame, in frame order."""
+    the COCO file of every frame, in frame order.  With --smooth_keyframes
+    every rank hands its frames to rank 0 at the end, which smooths them
+    all in frame order and writes every frame's files."""
     import pathlib as _pathlib
 
     import torch.distributed as dist
@@ -433,13 +435,12 @@ def run_fast_path(args, device=None, mesh=None) -> int:
         if args.write_keypoint else None
     coco_saver = json_io.CocoJsonSaver(args.write_coco_json_variants) \
         if args.write_coco_json else None
-    coco_rows = []      # over a mesh: (frame, args, kwargs) of each record
+    # (frame, args, kwargs) of each COCO record, written in frame order at
+    # the end (over a mesh, by rank 0 for every rank)
+    coco_rows = []
 
     def coco_record(index, *record_args, **record_kwargs):
-        if mesh is None:
-            coco_saver.record(*record_args, **record_kwargs)
-        else:
-            coco_rows.append((index, record_args, record_kwargs))
+        coco_rows.append((index, record_args, record_kwargs))
 
     names = {}
 
@@ -468,15 +469,21 @@ def run_fast_path(args, device=None, mesh=None) -> int:
                                     smoothness=args.smooth_lambda,
                                     device=device)
 
+    # over a mesh with the smoother: this rank's (frame, keypoints, scores),
+    # smoothed by rank 0 after the run, since the window needs every frame
+    raw_rows = []
+
     def on_result(res):
         # results arrive in frame order (VideoRunner resolves in submission
         # order), which the sliding-window smoother relies on
         if smoother is None:
             emit_result(res.index, res.keypoints, res.scores)
-            return
-        for idx, kp, sc in smoother.push(res.index, res.keypoints,
-                                         res.scores):
-            emit_result(idx, kp, sc)
+        elif mesh is not None:
+            raw_rows.append((res.index, res.keypoints, res.scores))
+        else:
+            for idx, kp, sc in smoother.push(res.index, res.keypoints,
+                                             res.scores):
+                emit_result(idx, kp, sc)
 
     t0 = time.time()
     if whole_body:
@@ -525,22 +532,28 @@ def run_fast_path(args, device=None, mesh=None) -> int:
         results = runner.run_video(args.video, frame_step=args.frame_step,
                                    max_frames=args.max_frames,
                                    on_result=on_result)
-    if smoother is not None:
+    n = len(results)
+    if mesh is not None:
+        # every rank's frame count, COCO records and unsmoothed frames to
+        # rank 0, which smooths the frames of all ranks in frame order
+        parts = [None] * dist.get_world_size() if lead else None
+        dist.gather_object((n, coco_rows, raw_rows), parts, dst=0)
+        if lead:
+            n = sum(count for count, _, _ in parts)
+            coco_rows = [row for _, rows, _ in parts for row in rows]
+            raw_rows = sorted((row for _, _, rows in parts for row in rows),
+                              key=lambda row: row[0])
+    if smoother is not None and lead:
+        for row in raw_rows:
+            for idx, kp, sc in smoother.push(*row):
+                emit_result(idx, kp, sc)
         for idx, kp, sc in smoother.flush():
             emit_result(idx, kp, sc)
     dt = time.time() - t0
-    n = len(results)
-    if mesh is not None:
-        # every rank's frame count and COCO records to rank 0
-        parts = [None] * dist.get_world_size() if lead else None
-        dist.gather_object((n, coco_rows), parts, dst=0)
-        if lead:
-            n = sum(count for count, _ in parts)
-            for _, record_args, record_kwargs in sorted(
-                    (row for _, rows in parts for row in rows),
-                    key=lambda row: row[0]):
-                coco_saver.record(*record_args, **record_kwargs)
     if coco_saver is not None and lead:
+        for _, record_args, record_kwargs in sorted(coco_rows,
+                                                    key=lambda row: row[0]):
+            coco_saver.record(*record_args, **record_kwargs)
         coco_saver.save(args.write_coco_json)
     if lead:
         ranks = "" if mesh is None else f", ranks={mesh.size()}"
@@ -604,10 +617,6 @@ def main(argv=None, device=None) -> int:
 
     if fast_path_eligible(args):
         if args.num_gpu > 1:
-            if args.smooth_keyframes > 0:
-                raise SystemExit(
-                    "--smooth_keyframes needs every frame in one process; "
-                    "it runs with --num_gpu 1")
             return run_ranks(args, _rank_devices(args, device))
         return run_fast_path(args, _cli_device(args, device))
     device = _cli_device(args, device)

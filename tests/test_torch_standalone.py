@@ -47,7 +47,8 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     """A fresh interpreter in which any import of `openpose_tpu`, `jax`,
     `optax` or `cv2` raises imports every module of the port (walking the
     package, the trainer, the accuracy harness, the entry points and what
-    they drive included) and `chip_smoke.py`; only `render/render.py`,
+    they drive, the user scripts and the tutorials included, none of which
+    runs when imported) and `chip_smoke.py`; only `render/render.py`,
     which draws with OpenCV, is imported after `cv2` is let through
     again."""
     script = textwrap.dedent("""
@@ -74,7 +75,17 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
                     "render.gui3d", "threed.camera", "threed.triangulation",
                     "threed.bundle_adjustment", "parallel.mesh",
                     "parallel.dryrun", "accuracy3d", "threed.calibration", "threed.visualsfm",
-                    "calibration_cli"):
+                    "calibration_cli", "scripts.synthetic_eval",
+                    "scripts.threed_eval", "scripts.train_to_ap",
+                    "scripts.fetch_models", "scripts.coco_val",
+                    "examples.01_body_from_image",
+                    "examples.02_whole_body_from_image",
+                    "examples.03_heatmaps_from_image",
+                    "examples.04_video_async", "examples.05_multiview_3d",
+                    "examples.06_train_from_coco",
+                    "examples.07_face_from_rectangles",
+                    "examples.08_hand_from_rectangles",
+                    "examples.09_keypoints_from_heatmaps"):
             assert "openpose_tpu_torch." + new in names, new
         for name in names:
             if name != needs_cv2:
@@ -89,7 +100,7 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.strip()) >= 62
+    assert int(proc.stdout.strip()) >= 78
 
 
 def _docstrings(tree):
@@ -136,8 +147,9 @@ def test_only_the_renderer_imports_opencv():
     imported.  Other modules import it inside the functions that read or
     write image and video files, draw, or show a window, and only there:
     the trainer's `coco_data_iterator`, the producers and savers, the
-    heatmap overlays, the GUI and the CLI (the card's machine has no
-    OpenCV, and what runs there calls none of them).  The calibration
+    heatmap overlays, the GUI, the CLI, `scripts/coco_val.py` and the
+    tutorials' `__main__` blocks (the card's machine has no OpenCV, and
+    what runs there calls none of them).  The calibration
     toolbox gets it from `threed/calibration.py::opencv`, which names
     OpenCV where it is missing."""
     importers = []
@@ -153,11 +165,17 @@ def test_only_the_renderer_imports_opencv():
                                   id(node) in at_top))
     assert sorted(set(importers)) == [
         ("openpose_tpu_torch/cli.py", False),
+        ("openpose_tpu_torch/examples/01_body_from_image.py", False),
+        ("openpose_tpu_torch/examples/02_whole_body_from_image.py", False),
+        ("openpose_tpu_torch/examples/03_heatmaps_from_image.py", False),
+        ("openpose_tpu_torch/examples/07_face_from_rectangles.py", False),
+        ("openpose_tpu_torch/examples/08_hand_from_rectangles.py", False),
         ("openpose_tpu_torch/io/producers.py", False),
         ("openpose_tpu_torch/io/savers.py", False),
         ("openpose_tpu_torch/render/gui.py", False),
         ("openpose_tpu_torch/render/heatmaps.py", False),
         ("openpose_tpu_torch/render/render.py", True),
+        ("openpose_tpu_torch/scripts/coco_val.py", False),
         ("openpose_tpu_torch/threed/calibration.py", False),
         ("openpose_tpu_torch/train_loop.py", False)]
     tree = ast.parse((PORT / "train_loop.py").read_text())
@@ -268,6 +286,23 @@ def test_calibration_toolbox_is_the_originals_code(relative):
 def test_copied_host_helpers_have_the_originals_code(relative, names):
     assert _code(PORT / relative, names) \
         == _code(ROOT / "openpose_tpu" / relative, names)
+
+
+def test_fetch_models_is_a_copy_of_the_original():
+    """The port's model fetcher holds the original's checksum and path
+    table, server and fetch code; only the conversion goes through the
+    port's own modules."""
+    import importlib.util
+    from openpose_tpu_torch.scripts import fetch_models
+    spec = importlib.util.spec_from_file_location(
+        "jax_scripts_fetch_models", ROOT / "scripts" / "fetch_models.py")
+    original = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(original)
+    assert fetch_models.MODELS == original.MODELS
+    assert fetch_models.DEFAULT_SERVER == original.DEFAULT_SERVER
+    names = ["md5_of", "fetch_one", "main"]
+    assert _code(PORT / "scripts" / "fetch_models.py", names) \
+        == _code(ROOT / "scripts" / "fetch_models.py", names)
 
 
 def test_ground_truth_helper_has_the_originals_code():
