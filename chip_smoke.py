@@ -97,6 +97,16 @@ with a non-zero exit when it fails:
    script's keys), and top-down refinement on small people: the people it
    replaces and the gate that stops each other candidate.  Tutorial 06
    reads COCO images with OpenCV and is not run.
+17. timing (after the threed phase): the port's measuring layer,
+   `utils/benchmark.py` and the timing scripts: `scripts/speed_test` at
+   its defaults (each stage's ms, one fused launch in its PAF stage, held
+   to the plain version), `scripts/profile_net` at batch 8 (each cut's ms
+   a frame, TFLOP/s and share of the bf16 peak; the sum of the cuts
+   against the whole forward), `chain_ms` against `timed` and
+   `device_busy` on the main path's batch-8 call,
+   `scripts/profile_train_step` beside the train phase's figure, and
+   `scripts/analyze_scaling` on a one-rank NCCL world (no collective in
+   inference).
 
 The kernel phase also holds the fused kernel to its plain version at the
 refinement's shape (8 crops of 368x368, thresholds 0.02 and 0.01).
@@ -117,12 +127,13 @@ Each path's kernel launches are also counted for one call.  A kernel's
 bound is the least time the card could take for the same work: the larger
 of its bytes (each input read once, each output written once) over the
 card's memory rate and its float operations (counted from this run's peak
-counts and line lengths) over the card's float32 rate.  The line before the
+counts and line lengths) over the card's float32 rate (the H100 SXM5's
+datasheet rates, `utils/benchmark.py`).  The line before the
 last is the kernel summary, the last line {"ok": true, "device": {...}}.  Details go to build/chip_smoke/chip_smoke.json.
-The default run took 635.8 s on one H100 80GB HBM3 at 700 W, the build
-and every phase included (597.9 s before the tools phase; the train
-phase's 1500 steps 156.6 s, the mesh phase 38.3 s, the tools phase
-18.3 s).  `--train-to-ap` takes 175 s; `--mesh-scaling` took 234 s
+The default run took 753.4 s on one H100 80GB HBM3 at 700 W, the build
+and every phase included, the timing phase 48.7 s of it (635.8 s before
+the timing phase was added, on a faster host; the train phase's 1500
+steps 156.6 s, the mesh phase 38.3 s, the tools phase 18.3 s).  `--train-to-ap` takes 175 s; `--mesh-scaling` took 234 s
 on four of them.
 """
 
@@ -137,6 +148,12 @@ import subprocess
 import sys
 import time
 
+# H100_SXM: the H100 SXM5's datasheet rates, the yardstick of the CNN's
+# FLOP utilisation (bf16 on tensor cores, float32 without TF32) and of the
+# kernels' bounds (float32 outside the tensor cores, and HBM3)
+from openpose_tpu_torch.utils.benchmark import (
+    H100_SXM, device_busy, host_ms, roofline_ms, timed)
+
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT_DIR = ROOT / "build" / "chip_smoke"
 # Kernel vs plain version: the two run the same IEEE-rounded float32
@@ -144,13 +161,6 @@ OUT_DIR = ROOT / "build" / "chip_smoke"
 # they are expected to agree bit for bit; 1e-5 leaves room for a last-bit
 # difference in a math routine that does not cross a threshold.
 KERNEL_TOL = 1e-5
-# Dense peak rates of the H100 SXM5 (NVIDIA H100 datasheet), the yardstick
-# of the CNN's FLOP utilisation: bf16 on tensor cores, float32 without TF32.
-PEAK_TFLOPS = {"cnn_bf16": 989.4, "cnn_f32": 66.9}
-# The kernels' bounds: float32 outside the tensor cores, and HBM3 (same
-# datasheet).
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
 # Float operations of the PAF kernels, counted from `kernels/paf_score.cu`
 # with every multiply and add on its own (the build forbids fused ones).
 # Per sample and scale: 2 source coordinates (2 each), 2 x `axis_taps` (3 to
@@ -170,71 +180,6 @@ GRAD_MEDIAN = 2e-3
 
 def log(*args):
     print(*args, flush=True)
-
-
-def timed(fn, warmup, iters, device):
-    """Mean milliseconds of fn() over iters calls, after warmup calls."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    return (time.perf_counter() - t0) * 1e3 / iters
-
-
-def host_ms(fn, iters):
-    """Mean host milliseconds of fn() (work that ends in a device->host
-    copy, so it is synchronised) over iters calls, after one warm-up."""
-    fn()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    return (time.perf_counter() - t0) * 1e3 / iters
-
-
-def device_busy(fn, iters):
-    """torch.profiler trace of iters calls of fn (work that ends in a host
-    sync): the share of the host's wall time in which the card ran kernels
-    or copies, their number and device time per call, and the five kernels
-    with the most device time per call.  None where the trace holds no
-    device events.  The profiler's own cost lengthens the wall time, so the
-    share is a lower bound."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name, launches = {}, 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-            launches += 1
-    if not by_name:
-        return None
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return {"busy_share": sum(by_name.values()) / wall_us,
-            "wall_ms_per_call": wall_us / iters / 1e3,
-            "device_ms_per_call": sum(by_name.values()) / iters / 1e3,
-            "device_launches_per_call": launches / iters,
-            "top_kernels_ms_per_call": [(name[:80], us / iters / 1e3)
-                                        for name, us in top]}
 
 
 def paf_scene(rng, counts, max_peaks, n, hw_low, n_channels, near_pair=False):
@@ -291,15 +236,6 @@ def launches_per_call(path, call):
     return counts
 
 
-def bound(n_bytes, n_ops):
-    """(bound_ms, bound_by) of a kernel that must move n_bytes and do n_ops
-    float32 operations."""
-    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = n_ops / PEAK_F32_FLOPS * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                            "operations")
-
-
 def fused_bound(sources, peaks, pairs, map_idx):
     """The scoring kernel's bound on these inputs.  Bytes: the PAF planes
     that map_idx names, the peaks, the scores.  Operations: those of the
@@ -324,7 +260,7 @@ def fused_bound(sources, peaks, pairs, map_idx):
     n_bytes = 4 * (sum(s.shape[0] * s.shape[1] * s.shape[2] * planes
                        for s in sources)
                    + peaks.numel() + peaks.shape[0] * pairs.shape[0] * k * k)
-    ms, by = bound(n_bytes, n_ops)
+    ms, by = roofline_ms(n_bytes, n_ops, H100_SXM)
     return {"bound_ms": ms, "bound_by": by, "lines": lines,
             "samples": samples, "bytes": n_bytes, "operations": n_ops}
 
@@ -360,7 +296,7 @@ def sampler_bound(lows, my):
     samples = my.numel()
     n_bytes = 24 * samples + 4 * sum(t.numel() for t in lows)
     n_ops = samples * OPS_PER_SAMPLE_SCALE * len(lows)
-    ms, by = bound(n_bytes, n_ops)
+    ms, by = roofline_ms(n_bytes, n_ops, H100_SXM)
     return {"bound_ms": ms, "bound_by": by, "samples": samples,
             "bytes": n_bytes, "operations": n_ops}
 
@@ -781,7 +717,8 @@ def stage_breakdown(model, frames, device, iters):
         with FlopCounterMode(display=False) as counter:
             src = model.forward(net_in, torch.bfloat16)
         out["cnn_flops"] = counter.get_total_flops()
-        for name, peak in PEAK_TFLOPS.items():
+        for name, peak in (("cnn_bf16", H100_SXM.bf16_tflops),
+                           ("cnn_f32", H100_SXM.f32_tflops)):
             out[f"{name}_tflops"] = out["cnn_flops"] / out[name] * 1e-9
             out[f"{name}_share_of_peak"] = out[f"{name}_tflops"] / peak
         merge = lambda: resize.upsample_merge([src[..., :info.num_parts]],
@@ -3342,7 +3279,7 @@ def mesh_scaling(max_ranks=4, batch=8, net_hw=(368, 656), iters=10,
     of 2 ranks or more, its train step's loss against the same step
     without a mesh."""
     import torch
-    import torch.multiprocessing as mp
+    from openpose_tpu_torch.scripts.scaling_bench import run_world
     cards = torch.cuda.device_count()
     device_type = "cuda" if cards else "cpu"
     worlds = [n for n in (1, 2, 4) if n <= max_ranks
@@ -3352,10 +3289,9 @@ def mesh_scaling(max_ranks=4, batch=8, net_hw=(368, 656), iters=10,
     for world in worlds:
         init = OUT_DIR / f"scaling_store_{world}"
         init.unlink(missing_ok=True)
-        mp.start_processes(
-            _scaling_rank, args=(world, str(init), device_type, batch,
-                                 net_hw, iters, train_size, train_steps),
-            nprocs=world, start_method="spawn")
+        run_world(_scaling_rank, world, (world, str(init), device_type,
+                                         batch, net_hw, iters, train_size,
+                                         train_steps))
         rates.append(json.loads(
             (OUT_DIR / f"scaling_{world}.json").read_text()))
         log("mesh scaling: " + json.dumps(rates[-1]))
@@ -3368,6 +3304,146 @@ def mesh_scaling(max_ranks=4, batch=8, net_hw=(368, 656), iters=10,
             r[key + "_speedup"] = r[key] / rates[0][key]
     log("mesh scaling against one rank: " + json.dumps(rates))
     return rates
+
+
+def timing_phase(device, model, train_step_ms=None, net_resolution="656x368",
+                 batch=8, train_size="368x368", chain=(2, 22, 3), ranks=1):
+    """The port's measuring layer (`utils/benchmark.py` and the timing
+    scripts) on the card:
+    (a) `scripts/speed_test` at its defaults (BODY_25, batch 1, 368x656,
+        bf16 net): each stage's ms; the PAF stage's call must launch the
+        fused kernel once, its scores held to the kernel's plain version
+        on that call's tensors (KERNEL_TOL);
+    (b) `scripts/profile_net` at batch 8, 368x656, bf16: ms a frame, GFLOP,
+        TFLOP/s and share of the bf16 datasheet peak of each cut; the sum
+        of the cuts against the whole forward's `timed` on the same
+        images (and each of the two by the other method), and the last
+        cut's net against `PoseNet.forward`;
+    (c) `chain_ms` against `timed` and `device_busy` on the main path's
+        batch-8 `PoseInference` call;
+    (d) `scripts/profile_train_step` at 368x368, batch 8, float32, beside
+        the train phase's own `device_step_probe` figure;
+    (e) `scripts/analyze_scaling` on a one-rank world (NCCL on the card):
+        no collective in inference."""
+    import importlib
+    import numpy as np
+    import torch
+    from openpose_tpu_torch.ops import paf, paf_cuda, resize
+    from openpose_tpu_torch.parallel.inference import PoseInference
+    from openpose_tpu_torch.utils.benchmark import chain_ms, fold
+    scripts = {name: importlib.import_module(
+        f"openpose_tpu_torch.scripts.{name}") for name in (
+        "speed_test", "profile_net", "profile_train_step", "analyze_scaling")}
+    t_phase = time.perf_counter()
+    out = {}
+    reset_launches()
+    cpu = ["--cpu"] if device.type == "cpu" else []
+
+    # (a) the main path stage by stage
+    res = scripts["speed_test"].main(
+        cpu + ["--net_resolution", net_resolution], device=device)
+    o = res["outputs"]
+    pairs, map_idx = (torch.from_numpy(t).to(device)
+                      for t in paf.pair_tables(model.info))
+    plain = paf.paf_scores_multiscale_reference(
+        [o["net"]], [1.0], tuple(o["image"].shape[1:3]), o["peaks"], pairs,
+        map_idx, 0.05, 0.95, 0.05)
+    paf_stage = "paf scores (multiscale)"
+    a = {"ms": res["ms"], "launches": res["launches"],
+         "shapes": {k: list(v.shape) for k, v in o.items()},
+         "peaks_per_part_mean": float(o["peaks"][:, :, 0, 0].mean()),
+         "paf_max_abs_err": float((o["scores"] - plain).abs().max()),
+         "paf_bit_equal": bool(torch.equal(o["scores"], plain)),
+         "seconds": time.perf_counter() - t_phase}
+    out["speed_test"] = a
+    log("timing (a) speed_test: " + json.dumps(a))
+    assert all(bool(torch.isfinite(v).all()) for v in o.values()), a
+    assert a["paf_max_abs_err"] <= KERNEL_TOL, a
+    if device.type == "cuda":
+        assert a["launches"][paf_stage]["paf_scores_fused"] == 1, a
+
+    # (b) the CNN cut by cut against the whole forward
+    rows = scripts["profile_net"].main(
+        cpu + ["--batch", str(batch), "--net_resolution", net_resolution],
+        device=device, chain=chain)
+    w, h = (int(v) for v in net_resolution.split("x"))
+    images = torch.from_numpy(np.random.RandomState(0).uniform(
+        0, 255, (batch, h, w, 3)).astype(np.float32)).to(device)
+    last_net = scripts["profile_net"].prefix_net(model, rows[-1]["cut"])
+    with torch.inference_mode():
+        x = resize.normalize_vgg(images)
+        whole = model.forward(x, torch.bfloat16)
+        last = last_net(x, torch.bfloat16)
+        forward_ms = timed(lambda: model.forward(x, torch.bfloat16), 2, 10,
+                           device)
+        last_cut_ms = timed(lambda: last_net(x, torch.bfloat16), 2, 10,
+                            device)
+
+    def whole_step(carry):
+        with torch.inference_mode():
+            return fold(carry, model.forward(
+                resize.normalize_vgg(images + carry * 1e-12), torch.bfloat16))
+    cuts_ms = sum(r["ms_per_frame"] for r in rows)
+    b = {"rows": rows, "sum_of_cuts_ms_per_frame": cuts_ms,
+         "whole_forward_timed_ms_per_frame": forward_ms / batch,
+         "sum_over_whole": cuts_ms / (forward_ms / batch),
+         # the same two calls by the other method each, to tell the
+         # methods' difference from the nets'
+         "last_cut_timed_ms_per_frame": last_cut_ms / batch,
+         "whole_forward_chain_ms_per_frame": chain_ms(
+             whole_step, *chain, device=device) / batch,
+         "last_cut_max_abs_diff": float((last - whole).abs().max()),
+         "whole_range": float(whole.max() - whole.min()),
+         "seconds": time.perf_counter() - t_phase}
+    out["profile_net"] = b
+    log("timing (b) profile_net: sum of the cuts "
+        f"{cuts_ms:.3f} ms a frame against the whole forward's timed "
+        f"{forward_ms / batch:.3f} ms a frame (x{b['sum_over_whole']:.3f}); "
+        f"the last cut timed {b['last_cut_timed_ms_per_frame']:.3f}, the "
+        f"whole forward chained {b['whole_forward_chain_ms_per_frame']:.3f}"
+        f" ms a frame; last cut against PoseNet.forward: "
+        f"{b['last_cut_max_abs_diff']}")
+    assert len(rows) == len(scripts["profile_net"].cut_names(model.spec))
+    assert all(np.isfinite(r["ms_per_frame"]) for r in rows), rows
+    assert b["last_cut_max_abs_diff"] <= 1e-3 * b["whole_range"], b
+
+    # (c) the chained method against CUDA events and the profiler on the
+    # main path's batch-8 call
+    inference = PoseInference(model, net_hw=(h, w), device=device)
+    frames = torch.from_numpy(scene_frames(
+        np.random.RandomState(0), batch, (h, w))).to(device).to(torch.float32)
+    c = {"chain_ms": chain_ms(
+             lambda carry: fold(carry, *inference(frames + carry * 1e-12)),
+             *chain, device=device),
+         "timed_ms": timed(lambda: inference(frames), 2, 10, device),
+         "trace": device_busy(lambda: inference(frames), 3)
+         if device.type == "cuda" else None}
+    c["chain_over_timed"] = c["chain_ms"] / c["timed_ms"]
+    c["seconds"] = time.perf_counter() - t_phase
+    out["chain"] = c
+    log("timing (c) main path batch 8: " + json.dumps(c))
+    assert c["chain_ms"] > 0 and np.isfinite(c["chain_ms"]), c
+
+    # (d) the train step alone, beside the train phase's figure
+    d = scripts["profile_train_step"].main(
+        cpu + ["--image_size", train_size, "--batch", str(batch)],
+        device=device)
+    d["train_phase_device_step_ms"] = train_step_ms
+    d["seconds"] = time.perf_counter() - t_phase
+    out["profile_train_step"] = d
+    log("timing (d) profile_train_step: " + json.dumps(d))
+    assert np.isfinite(d["device_step_ms"]) and d["device_step_ms"] > 0, d
+
+    # (e) the collectives of a one-rank world
+    e = scripts["analyze_scaling"].main(["--ranks", str(ranks)])
+    out["analyze_scaling"] = e
+    log("timing (e) analyze_scaling: " + json.dumps(e))
+    assert e["inference"]["collectives"] == {}, e
+
+    out["launches"] = read_launches("timing path", paf_cuda.paf_scores_fused)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"timing phase: {out['seconds']:.1f} s")
+    return out
 
 
 def synthetic_frame(people, image_size, seed=7):
@@ -3437,6 +3513,8 @@ def main() -> int:
     with one_rank_group(device):       # one NCCL group for both phases
         report["mesh"] = mesh_phase(device, model)
         report["threed"] = threed_phase(device)
+    report["timing"] = timing_phase(
+        device, model, report["train"]["f32"]["device_step_ms"])
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -3452,12 +3530,13 @@ def main() -> int:
         "launches": sum(report[phase]["launches"]["paf_scores_fused"]
                         for phase in ("main_path", "whole_body", "wrapper",
                                       "runner", "accuracy", "train", "cli",
-                                      "tools", "mesh")),
+                                      "tools", "mesh", "timing")),
         "max_abs_err": max(kernel["max_abs_err"], report["main_path"][
             "breakdown"]["paf_main_path_max_abs_err"], report["accuracy"][
             "kernel_on_loop_batch"]["max_abs_err"], report["train"][
             "kernel_on_trained_frame"]["max_abs_err"], report["tools"][
-            "kernel_on_tutorial_09"]["max_abs_err"]),
+            "kernel_on_tutorial_09"]["max_abs_err"], report["timing"][
+            "speed_test"]["paf_max_abs_err"]),
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound"]["bound_ms"],
         "bound_by": kernel["bound"]["bound_by"], "library_ms": None}, {

@@ -13,7 +13,8 @@ of the group calls `dryrun_multichip(world_size)`, which runs
    with injected net outputs whose people must assemble;
 
 and returns what it found, so that a test or a smoke run can hold it.
-`count_collectives` is the counter step 2 uses.
+`count_collectives` is the counter step 2 uses; `collective_census` names
+what it traced as the original's scaling scripts do.
 """
 
 from __future__ import annotations
@@ -55,14 +56,11 @@ def _counted_dist_calls(counts: Dict[str, int]):
             setattr(dist, name, fn)
 
 
-def count_collectives(fn: Callable) -> Tuple[object, dict]:
-    """Run fn() and count the collectives it made.  Returns (fn's result,
-    {"dist_calls": calls of torch.distributed's collective functions by
-    name, "traced": the collectives a torch.profiler trace shows the
-    process groups running (their `gloo:` and `nccl:` spans, which
-    DTensor's functional collectives make too), "nccl_kernels": the NCCL
-    kernels the card ran}).  fn must end with its work done (a host
-    copy, or a synchronize)."""
+def _traced_collectives(fn: Callable):
+    """(fn's result, calls of torch.distributed's collective functions by
+    name, the process groups' `gloo:` and `nccl:` spans in a torch.profiler
+    trace by the op name after the prefix, the NCCL kernels the card ran).
+    """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
@@ -73,14 +71,52 @@ def count_collectives(fn: Callable) -> Tuple[object, dict]:
         result = fn()
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-    traced = kernels = 0
+    spans: Dict[str, int] = {}
+    kernels = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             kernels += "nccl" in e.name.lower()
         elif e.name.startswith(("gloo:", "nccl:")):
-            traced += 1
-    return result, {"dist_calls": calls, "traced": traced,
+            op = e.name.split(":", 1)[1]
+            spans[op] = spans.get(op, 0) + 1
+    return result, calls, spans, kernels
+
+
+def count_collectives(fn: Callable) -> Tuple[object, dict]:
+    """Run fn() and count the collectives it made.  Returns (fn's result,
+    {"dist_calls": calls of torch.distributed's collective functions by
+    name, "traced": the collectives a torch.profiler trace shows the
+    process groups running (their `gloo:` and `nccl:` spans, which
+    DTensor's functional collectives make too), "nccl_kernels": the NCCL
+    kernels the card ran}).  fn must end with its work done (a host
+    copy, or a synchronize)."""
+    result, calls, spans, kernels = _traced_collectives(fn)
+    return result, {"dist_calls": calls, "traced": sum(spans.values()),
                     "nccl_kernels": kernels}
+
+
+# the process groups' op names (lower case, without "_") -> the names of the
+# original's census of its compiled programs
+_CENSUS_NAMES = (("allreduce", "all-reduce"), ("allgather", "all-gather"),
+                 ("reducescatter", "reduce-scatter"),
+                 ("alltoall", "all-to-all"))
+
+
+def collective_census(fn: Callable) -> Tuple[object, Dict[str, int]]:
+    """Run fn() and count the collectives its process groups ran, by the
+    original's names (`all-reduce`, `all-gather`, `reduce-scatter`,
+    `all-to-all`; any other op by its own name with "-" for "_"): the
+    traced spans of `count_collectives`, so DTensor's functional
+    collectives are counted too.  {} where fn ran none.  fn must end with
+    its work done."""
+    result, _, spans, _ = _traced_collectives(fn)
+    census: Dict[str, int] = {}
+    for op, n in spans.items():
+        key = op.lower().replace("_", "")
+        name = next((name for part, name in _CENSUS_NAMES if part in key),
+                    op.replace("_", "-"))
+        census[name] = census.get(name, 0) + n
+    return result, census
 
 
 def _mpi_person(cx: float, cy: float) -> np.ndarray:

@@ -15,8 +15,9 @@ one-process run's; the host's cost of the draw is paid on every rank.  Rank
 
 Throughput figures use the 3x-forward convention (forward, gradient of the
 parameters, gradient of the activations: three times the forward's
-multiply-adds) against NVIDIA's H100 SXM datasheet peaks, dense: 989.4
-TFLOP/s for bfloat16 operands, 67 TFLOP/s for float32 without TF32.
+multiply-adds) against the datasheet peak of the card the trainer runs on,
+for its operands' type (`utils/benchmark.py`; none for a card the table
+does not hold).
 """
 
 from __future__ import annotations
@@ -40,10 +41,8 @@ from openpose_tpu_torch.models import checkpoint, graph
 from openpose_tpu_torch.ops import paf as paf_ops
 from openpose_tpu_torch.ops.resize import normalize_vgg
 from openpose_tpu_torch.parallel import mesh as mesh_lib
+from openpose_tpu_torch.utils import benchmark
 from openpose_tpu_torch.params import POSE_MODEL_INFO, PoseModel
-
-# NVIDIA H100 SXM datasheet, dense TFLOP/s, by the convolutions' operand type
-H100_PEAK_TFLOPS = {torch.bfloat16: 989.4, torch.float32: 67.0}
 
 # COCO 17 -> model part index (BODY_25/COCO_18 share the mapping below for
 # the COCO-subset joints; neck is synthesized as the shoulder midpoint, the
@@ -269,9 +268,9 @@ class Trainer:
         self.base_step = train_mod.make_train_step(compute_dtype, mesh)
         self.fwd_gflops = sum(graph.count_flops(
             self.spec, config.image_size).values()) / 1e9
-        # the yardstick of a run on a card; a CPU run has none
-        self.peak_tflops = H100_PEAK_TFLOPS[compute_dtype] \
-            if device.type == "cuda" else None
+        # the yardstick of a run on a card the datasheet table holds
+        self.peak_tflops = benchmark.peak_tflops(
+            compute_dtype, benchmark.device_name(device)) or None
 
     def step(self, images: torch.Tensor, keypoints: torch.Tensor):
         """images [B,H,W,3] uint8 and keypoints on the device -> loss."""
@@ -315,7 +314,8 @@ def device_step_probe(config: TrainConfig, n: int = 10, warmup: int = 3,
 
     Returns {device_step_ms, device_img_s, device_train_tflops,
     device_train_mfu}: the 3x-forward FLOPs convention, the share of the
-    H100 datasheet peak for `compute_dtype`'s operands (None on a CPU).
+    card's datasheet peak for `compute_dtype`'s operands (None on a CPU
+    or a card the table does not hold).
     Over an initialised process group it times the meshed step (`train`'s
     rule), each rank on its rows of the global batch."""
     device = device_rule.resolve(device)

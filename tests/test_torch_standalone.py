@@ -47,10 +47,10 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     """A fresh interpreter in which any import of `openpose_tpu`, `jax`,
     `optax` or `cv2` raises imports every module of the port (walking the
     package, the trainer, the accuracy harness, the entry points and what
-    they drive, the user scripts and the tutorials included, none of which
-    runs when imported) and `chip_smoke.py`; only `render/render.py`,
-    which draws with OpenCV, is imported after `cv2` is let through
-    again."""
+    they drive, the user and timing scripts and the tutorials included,
+    none of which runs when imported) and `chip_smoke.py`; only
+    `render/render.py`, which draws with OpenCV, is imported after `cv2`
+    is let through again."""
     script = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
@@ -78,6 +78,9 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
                     "calibration_cli", "scripts.synthetic_eval",
                     "scripts.threed_eval", "scripts.train_to_ap",
                     "scripts.fetch_models", "scripts.coco_val",
+                    "utils.benchmark", "scripts.speed_test",
+                    "scripts.profile_net", "scripts.profile_train_step",
+                    "scripts.scaling_bench", "scripts.analyze_scaling",
                     "examples.01_body_from_image",
                     "examples.02_whole_body_from_image",
                     "examples.03_heatmaps_from_image",
