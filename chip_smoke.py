@@ -141,7 +141,6 @@ from __future__ import annotations
 
 import contextlib
 import json
-import os
 import pathlib
 import shutil
 import subprocess
@@ -3218,13 +3217,8 @@ def _scaling_rank(rank, world, init_file, device_type, batch, net_hw,
     from openpose_tpu_torch.parallel import mesh as mesh_lib
     from openpose_tpu_torch.parallel.dryrun import dryrun_multichip
     from openpose_tpu_torch.parallel.inference import PoseInference
-    device = torch.device(device_type, rank) if device_type == "cuda" \
-        else torch.device("cpu")
-    # the ranks share the host's cores
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.benchmark = True
+    from openpose_tpu_torch.scripts.scaling_bench import rank_device
+    device = rank_device(rank, world, device_type)
     with mesh_lib.process_group(init_file, world, rank, device):
         mesh = mesh_lib.make_mesh(device_type=device.type)
         model = zoo.load_pose_model(seed=0, device=device)
@@ -3306,10 +3300,10 @@ def mesh_scaling(max_ranks=4, batch=8, net_hw=(368, 656), iters=10,
     return rates
 
 
-def timing_phase(device, model, train_step_ms=None, net_resolution="656x368",
-                 batch=8, train_size="368x368", chain=(2, 22, 3), ranks=1):
+def timing_phase(device, model, train_step_ms=None, rehearse=False):
     """The port's measuring layer (`utils/benchmark.py` and the timing
-    scripts) on the card:
+    scripts) on the card (`rehearse`: at small shapes, to try the phase on
+    the CPU):
     (a) `scripts/speed_test` at its defaults (BODY_25, batch 1, 368x656,
         bf16 net): each stage's ms; the PAF stage's call must launch the
         fused kernel once, its scores held to the kernel's plain version
@@ -3334,6 +3328,9 @@ def timing_phase(device, model, train_step_ms=None, net_resolution="656x368",
     scripts = {name: importlib.import_module(
         f"openpose_tpu_torch.scripts.{name}") for name in (
         "speed_test", "profile_net", "profile_train_step", "analyze_scaling")}
+    net_resolution, batch, train_size, chain = (
+        ("96x64", 2, "32x32", (1, 2, 1)) if rehearse
+        else ("656x368", 8, "368x368", (2, 22, 3)))
     t_phase = time.perf_counter()
     out = {}
     reset_launches()
@@ -3435,7 +3432,7 @@ def timing_phase(device, model, train_step_ms=None, net_resolution="656x368",
     assert np.isfinite(d["device_step_ms"]) and d["device_step_ms"] > 0, d
 
     # (e) the collectives of a one-rank world
-    e = scripts["analyze_scaling"].main(["--ranks", str(ranks)])
+    e = scripts["analyze_scaling"].main(cpu + ["--ranks", "1"])
     out["analyze_scaling"] = e
     log("timing (e) analyze_scaling: " + json.dumps(e))
     assert e["inference"]["collectives"] == {}, e

@@ -10,8 +10,9 @@ reduces the gradient once a step and, on a ``model`` dimension of 2,
 gathers the weight shards (DTensor) where it uses them.
 
 A world of `--ranks` processes (8 by default, the original's 8 devices)
-joins one process group: one card a rank (NCCL) where there are as many
-cards, gloo ranks on the CPU otherwise.  Every rank runs
+joins one process group: one card a rank (NCCL; with fewer cards than
+ranks it raises `NoCudaDeviceError`), or with `--cpu` gloo ranks on the
+CPU.  Every rank runs
 (1) MPI_15_4 at 64x64 in float32 through `PoseInference` on a data mesh
 of all ranks, and (2) one float32 train step of MPI_15_4 at 32x32 on a
 (data = ranks / 2, model = 2) mesh (model 1 for an odd world);
@@ -19,7 +20,7 @@ of all ranks, and (2) one float32 train step of MPI_15_4 at 32x32 on a
 ran in each, and rank 0 reports.
 
 Usage:
-  python -m openpose_tpu_torch.scripts.analyze_scaling [--ranks 8]
+  python -m openpose_tpu_torch.scripts.analyze_scaling [--ranks 8] [--cpu]
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import tempfile
 import torch
 
 from openpose_tpu_torch.scripts.scaling_bench import (
-    JOIN_SECONDS, rank_device, run_world)
+    JOIN_SECONDS, rank_device, require_cards, run_world)
 
 
 def _dims(mesh) -> dict:
@@ -106,9 +107,12 @@ def main(argv=None, timeout: float = JOIN_SECONDS) -> dict:
     and returns it."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--ranks", type=int, default=8)
+    ap.add_argument("--cpu", action="store_true",
+                    help="gloo ranks on the CPU")
     args = ap.parse_args(argv)
-    device_type = "cuda" if torch.cuda.device_count() >= args.ranks \
-        else "cpu"
+    device_type = "cpu" if args.cpu else "cuda"
+    if device_type == "cuda":
+        require_cards(args.ranks)
     with tempfile.TemporaryDirectory(prefix="analyze_scaling_") as tmp:
         out = pathlib.Path(tmp) / "report.json"
         run_world(_rank, args.ranks, (args.ranks, str(pathlib.Path(tmp)

@@ -8,15 +8,20 @@ the world's frames/s divides the global frames by the slowest rank, and
 
     efficiency(n) = fps_global(n) / (n * fps_global(1))
 
-Where there are at least as many cards as the largest world, each rank
-takes a card of its own (NCCL).  Otherwise the ranks are gloo processes,
+Each rank takes a card of its own (NCCL); with fewer cards than the
+largest world (4, or 2 with `four_host=False`) it raises
+`NoCudaDeviceError`.  `--cpu` runs the ranks as gloo processes instead,
 each pinned to a core of its own (`sched_setaffinity`) with one torch
-thread: the original's emulation of single-device hosts.  `--reps`
-paired (1-rank, 2-rank) launches run back to back so that both sample the
-same background load, and the report gives the median efficiency with its
-spread, per-rank times and the load average.  A 4-rank point follows;
-with fewer cores (or cards) than 4 it is oversubscribed by construction,
-so the report also gives it normalised by min(4, cores).
+thread: the original's emulation of single-device hosts.  Every rank
+waits at a barrier before each timed repetition, so repetition k of all
+ranks covers the same span.  `--reps` paired (1-rank, 2-rank) launches
+run back to back so that both sample the same background load, and the
+report gives the median efficiency with its spread, per-rank times and
+the load average; on cards each rank also traces 10 calls at once with
+the others (`device_busy`: busy share, device and wall ms a call), to
+tell a slower card from a slower host.  A 4-rank point follows; with
+fewer cores than 4 it is oversubscribed by construction, so the report
+also gives it normalised by min(4, cores).
 `collectives_inference` is rank 0's census of one 2-rank call
 (`parallel/dryrun.py::collective_census`): {} for a data-parallel program.
 
@@ -25,7 +30,7 @@ float32); `--model BODY_25 --net_hw 368x656 --dtype bfloat16` gives the
 card's main-path shape.
 
 Usage:
-  python -m openpose_tpu_torch.scripts.scaling_bench [--out FILE]
+  python -m openpose_tpu_torch.scripts.scaling_bench [--cpu] [--out FILE]
 """
 
 from __future__ import annotations
@@ -41,6 +46,8 @@ import time
 
 import numpy as np
 import torch
+
+from openpose_tpu_torch.device import NoCudaDeviceError
 
 JOIN_SECONDS = 1800
 
@@ -65,6 +72,17 @@ def run_world(fn, world: int, args: tuple, timeout: float = JOIN_SECONDS):
                 proc.kill()
 
 
+def require_cards(ranks: int) -> None:
+    """Raises `NoCudaDeviceError` unless there is a card for each of
+    `ranks` ranks."""
+    cards = torch.cuda.device_count()
+    if cards < ranks:
+        raise NoCudaDeviceError(
+            f"{ranks} ranks run on one CUDA device each and {cards} are "
+            "visible; pass --cpu (device_type=\"cpu\") to run them as gloo "
+            "ranks on the CPU")
+
+
 def rank_device(rank: int, world: int, device_type: str) -> torch.device:
     """A rank's device: card `rank` for NCCL ranks (TF32 off, cuDNN's
     algorithm search on, as on the main path; the ranks share the host's
@@ -86,13 +104,16 @@ def rank_device(rank: int, world: int, device_type: str) -> torch.device:
 
 def _rank(rank, world, init_file, device_type, config, out_dir):
     """One rank of `run_config`: warm up, count the collectives of one
-    call, then time `inner` loops of `iters` calls; writes its result as
-    `rank<r>.json` into out_dir."""
+    call, then time `inner` loops of `iters` calls, each after a barrier,
+    and on a card trace 10 calls; writes its result as `rank<r>.json` into
+    out_dir."""
+    import torch.distributed as dist
     from openpose_tpu_torch.models import zoo
     from openpose_tpu_torch.parallel import mesh as mesh_lib
     from openpose_tpu_torch.parallel.dryrun import collective_census
     from openpose_tpu_torch.parallel.inference import PoseInference
     from openpose_tpu_torch.params import PoseModel
+    from openpose_tpu_torch.utils.benchmark import device_busy
     device = rank_device(rank, world, device_type)
     with mesh_lib.process_group(init_file, world, rank, device) as device:
         mesh = mesh_lib.make_mesh(device_type=device.type)   # data only
@@ -112,22 +133,28 @@ def _rank(rank, world, init_file, device_type, config, out_dir):
         _, census = collective_census(call)
         dts = []
         for _ in range(config["inner"]):
+            dist.barrier()
             t0 = time.perf_counter()
             for _ in range(config["iters"]):
                 call()
             dts.append(time.perf_counter() - t0)
+        trace = None
+        if device.type == "cuda":
+            dist.barrier()
+            busy = device_busy(call, 10)
+            trace = {k: busy[k] for k in ("busy_share", "wall_ms_per_call",
+                                          "device_ms_per_call")}
     (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps({
         "proc": rank, "dts": dts,
         "local_frames": config["batch"] * config["iters"],
-        "collectives": census}))
+        "collectives": census, "trace": trace}))
 
 
 def run_config(n_proc: int, config: dict, device_type: str,
                workdir: pathlib.Path, timeout: float = JOIN_SECONDS) -> dict:
     """One launch of n_proc ranks, `config["inner"]` timed repetitions
-    each.  Repetition i of every rank is paired into one global frames/s
-    (the program has no collective to line the ranks up, but they start
-    together and each repetition is long against the start's skew)."""
+    each.  Repetition i of every rank, started together at a barrier, is
+    paired into one global frames/s."""
     out_dir = pathlib.Path(tempfile.mkdtemp(prefix=f"world{n_proc}_",
                                             dir=workdir))
     run_world(_rank, n_proc, (n_proc, str(out_dir / "init"), device_type,
@@ -143,29 +170,33 @@ def run_config(n_proc: int, config: dict, device_type: str,
             "rep_fps": [round(f, 2) for f in rep_fps],
             "per_proc_dts": {r["proc"]: [round(d, 3) for d in r["dts"]]
                              for r in results},
+            "per_proc_trace": {r["proc"]: r["trace"] for r in results},
             "collectives": results[0]["collectives"]}
 
 
 def measure(batch: int = 8, iters: int = 10, reps: int = 5, inner: int = 2,
             workdir=None, four_host: bool = True, model: str = "MPI_15_4",
             net_hw=(64, 64), dtype: str = "float32", max_peaks: int = 16,
+            device_type: str = "cuda",
             timeout: float = JOIN_SECONDS) -> dict:
     """The scaling report (the original's keys); workdir: where the ranks
-    meet and write (a temporary folder when None); timeout: the most
-    seconds one launch may take."""
+    meet and write (a temporary folder when None); device_type: "cuda" (a
+    card a rank; raises `NoCudaDeviceError` with fewer cards than ranks)
+    or "cpu" (gloo ranks, a core each); timeout: the most seconds one
+    launch may take."""
+    if device_type == "cuda":
+        require_cards(4 if four_host else 2)
     if workdir is None:
         with tempfile.TemporaryDirectory(prefix="scaling_") as tmp:
             return measure(batch, iters, reps, inner, pathlib.Path(tmp),
                            four_host, model, net_hw, dtype, max_peaks,
-                           timeout)
+                           device_type, timeout)
     workdir = pathlib.Path(workdir)
     config = {"model": model, "net_hw": tuple(net_hw), "dtype": dtype,
               "max_peaks": max_peaks, "batch": batch, "iters": iters,
               "inner": inner}
     n_cores = os.cpu_count() or 1
-    cards = torch.cuda.device_count()
-    device_type = "cuda" if cards >= (4 if four_host else 2) else "cpu"
-    units = cards if device_type == "cuda" else n_cores
+    units = torch.cuda.device_count() if device_type == "cuda" else n_cores
     load_start = os.getloadavg()
     pair_effs = []
     pair_detail = []
@@ -228,11 +259,14 @@ def main(argv=None) -> dict:
                     choices=("float32", "bfloat16"))
     ap.add_argument("--max_peaks", type=int, default=16)
     ap.add_argument("--out", default="SCALING_torch.json")
+    ap.add_argument("--cpu", action="store_true",
+                    help="gloo ranks on the CPU, a core each")
     args = ap.parse_args(argv)
     h, w = (int(v) for v in args.net_hw.split("x"))
     report = measure(args.batch, args.iters, args.reps, args.inner,
                      model=args.model, net_hw=(h, w), dtype=args.dtype,
-                     max_peaks=args.max_peaks)
+                     max_peaks=args.max_peaks,
+                     device_type="cpu" if args.cpu else "cuda")
     print(json.dumps(report, indent=2))
     if args.out:
         pathlib.Path(args.out).write_text(json.dumps(report, indent=2))

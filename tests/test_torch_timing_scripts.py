@@ -8,8 +8,10 @@ calls, on the port's input to that stage and the same seeded weights
 resize within 1e-5 of its range, NMS with exact counts and scores and
 positions within 1e-4 px (`tests/test_torch_nms.py`), PAF scores rtol 1e-4,
 atol 1e-5 (`tests/test_ops.py:404`).  `profile_net`'s cuts and GFLOP are
-JAX's exactly.  The multi-process scripts start gloo ranks with one torch
-thread each, under a deadline: their reports carry the JAX reports' keys
+JAX's exactly.  The multi-process scripts, asked for the CPU, start gloo
+ranks with one torch thread each, under a deadline (without that request
+and without a card for each rank they raise): their reports carry the
+JAX reports' keys
 and findings (no collective in data-parallel inference, an all-reduce in
 the sharded train step); their timings are CPU noise and are held to
 nothing but being finite and positive.
@@ -29,6 +31,7 @@ from openpose_tpu.models import graph as jgraph
 from openpose_tpu.ops import nms as jnms
 from openpose_tpu.ops import paf as jpaf
 from openpose_tpu.ops import resize as jresize
+from openpose_tpu_torch.device import NoCudaDeviceError
 from openpose_tpu_torch.models import checkpoint, zoo
 from openpose_tpu_torch.ops import paf
 from openpose_tpu_torch.params import PoseModel
@@ -171,7 +174,7 @@ def test_scaling_bench_report_on_gloo(tmp_path):
     CPU noise)."""
     report = scaling_bench.measure(batch=2, iters=2, reps=1,
                                    workdir=tmp_path, four_host=False,
-                                   timeout=JOIN_SECONDS)
+                                   device_type="cpu", timeout=JOIN_SECONDS)
     want = json.loads((ROOT / "SCALING_r05.json").read_text())
     assert set(report) == set(want)
     assert set(report["pairs"][0]) == set(want["pairs"][0])
@@ -183,13 +186,28 @@ def test_scaling_bench_report_on_gloo(tmp_path):
     assert "gloo" in report["config"]
     assert report["pairs"][0]["two_hosts"]["n_hosts"] == 2
     assert len(report["pairs"][0]["two_hosts"]["per_proc_dts"]) == 2
+    assert report["pairs"][0]["two_hosts"]["per_proc_trace"] \
+        == {0: None, 1: None}
+
+
+@pytest.mark.skipif(torch.cuda.is_available(),
+                    reason="checks the refusal where there is no card")
+def test_multi_process_scripts_stay_off_the_cpu_unless_asked(tmp_path):
+    """Without --cpu (device_type="cpu") and with fewer cards than ranks
+    both scripts raise before they start a rank, naming the two counts."""
+    with pytest.raises(NoCudaDeviceError, match="4 ranks .* --cpu"):
+        scaling_bench.measure(batch=2, iters=2, reps=1, workdir=tmp_path)
+    with pytest.raises(NoCudaDeviceError, match="8 ranks .* --cpu"):
+        analyze_scaling.main([])
+    assert not any(tmp_path.iterdir())
 
 
 def test_analyze_scaling_on_four_gloo_ranks():
     """The JAX report's shape and findings on a world of 4: no collective
     in data-parallel inference, the gradient all-reduce (and the weight
     shards' all-gathers) in the (2, 2) train step."""
-    report = analyze_scaling.main(["--ranks", "4"], timeout=JOIN_SECONDS)
+    report = analyze_scaling.main(["--ranks", "4", "--cpu"],
+                                  timeout=JOIN_SECONDS)
     assert set(report) == {"inference", "train"}
     for part in report.values():
         assert set(part) == {"mesh", "collectives", "scaling"}
