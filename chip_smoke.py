@@ -140,6 +140,7 @@ on four of them.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import pathlib
 import shutil
@@ -1820,11 +1821,16 @@ def _serving_peak_mb(model, images, dtype, device):
     inference(images)                                   # warm-up
     if device.type != "cuda":
         return 0.0
+    gc.collect()        # no earlier garbage is freed inside the window
     torch.cuda.synchronize(device)
     before = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
-    peaks, scores = inference(images)
-    torch.cuda.synchronize(device)
+    gc.disable()
+    try:
+        peaks, scores = inference(images)
+        torch.cuda.synchronize(device)
+    finally:
+        gc.enable()
     assert not peaks.requires_grad and not scores.requires_grad
     return (torch.cuda.max_memory_allocated(device) - before) / 1e6
 

@@ -189,9 +189,15 @@ class PoseNet(nn.Module):
             for key, val in params[layer.name].items():
                 val = val.to(torch.float32)
                 # conv weights in the activations' layout (a shard keeps
-                # the layout of the weight it was cut from)
+                # the layout of the weight it was cut from), with one
+                # stride for a dim of size 1 too: a 1x1 conv's weight from
+                # a file and from a trainer then give cuDNN one descriptor,
+                # so both nets run the same algorithms
                 if val.ndim == 4 and not isinstance(val, DTensor):
                     val = val.contiguous(memory_format=torch.channels_last)
+                    val = val.as_strided(val.shape, torch.empty(
+                        val.shape, device="meta",
+                        memory_format=torch.channels_last).stride())
                 self.weights[f"{layer.name}__{key}"] = nn.Parameter(
                     val, requires_grad=trainable)
 

@@ -201,3 +201,25 @@ def test_rejects_other_compute_dtypes():
         _jax_params(_small_spec(), 0)), device="cpu")
     with pytest.raises(ValueError, match="compute_dtype"):
         model.forward(torch.zeros(1, 8, 8, 3), torch.float16)
+
+
+def test_weights_of_any_origin_get_one_layout():
+    """A 1x1 conv's weight from the JAX bridge (an HWIO transpose) and from
+    contiguous OIHW tensors ends up with the same strides in a `PoseNet`,
+    so cuDNN sees one descriptor; a trainer's serving view keeps its
+    storage and the outputs are equal."""
+    spec = _small_spec()
+    params = checkpoint.from_jax_params(_jax_params(spec, 3))
+    contiguous = {name: {k: v.contiguous() for k, v in sub.items()}
+                  for name, sub in params.items()}
+    assert params["c3"]["w"].stride() != contiguous["c3"]["w"].stride()
+    bridged = graph.PoseNet(spec, params)
+    trainer = graph.PoseNet(spec, contiguous, trainable=True)
+    view = trainer.serving_view()
+    for name, w in bridged.weights.items():
+        assert w.stride() == trainer.weights[name].stride(), name
+        assert view.weights[name].data_ptr() == trainer.weights[name].data_ptr()
+    image = torch.from_numpy(
+        np.random.RandomState(4).rand(2, 12, 10, 3).astype(np.float32))
+    with torch.inference_mode():
+        assert torch.equal(bridged(image), view(image))
