@@ -107,6 +107,14 @@ with a non-zero exit when it fails:
    `scripts/profile_train_step` beside the train phase's figure, and
    `scripts/analyze_scaling` on a one-rank NCCL world (no collective in
    inference).
+18. bench (after the timing phase): the flagship entry point
+   `openpose_tpu_torch/entry.py::entry()` (one fused launch, held to the
+   plain version) and `python -m openpose_tpu_torch.bench` in this
+   process: every row the card measures present and not withheld by the
+   roofline guard, the closed loops at the accuracy phase's gates; the
+   fused kernel held to its plain version on the bench's three post
+   inputs (8 people, a crowd of 32, noise that fills all 127 peaks of
+   every part) and the sampler on the 4-scale row's inputs.
 
 The kernel phase also holds the fused kernel to its plain version at the
 refinement's shape (8 crops of 368x368, thresholds 0.02 and 0.01).
@@ -130,9 +138,10 @@ card's memory rate and its float operations (counted from this run's peak
 counts and line lengths) over the card's float32 rate (the H100 SXM5's
 datasheet rates, `utils/benchmark.py`).  The line before the
 last is the kernel summary, the last line {"ok": true, "device": {...}}.  Details go to build/chip_smoke/chip_smoke.json.
-The default run took 753.4 s on one H100 80GB HBM3 at 700 W, the build
-and every phase included, the timing phase 48.7 s of it (635.8 s before
-the timing phase was added, on a faster host; the train phase's 1500
+The default run took 684 s on one H100 80GB HBM3 at 700 W, the build and
+every phase included, the bench phase 34.9 s of it (753.4 s before the
+bench phase was added, on a slower host, the timing phase 48.7 s of it;
+635.8 s before the timing phase was added; the train phase's 1500
 steps 156.6 s, the mesh phase 38.3 s, the tools phase 18.3 s).  `--train-to-ap` takes 175 s; `--mesh-scaling` took 234 s
 on four of them.
 """
@@ -3449,6 +3458,119 @@ def timing_phase(device, model, train_step_ms=None, rehearse=False):
     return out
 
 
+# the bench rows the card measures: each must be present and above 0.0
+# (0.0 is a row the roofline guard withheld, or a chain that measured
+# nothing)
+BENCH_CARD_RATES = ("value", "crowd32_fps", "worst_case_fps", "batch1_fps",
+                    "whole_body_fps", "whole_body_typical_fps",
+                    "multiscale4_fps")
+
+
+def bench_phase(device, model, rehearse=False):
+    """The flagship entry point and the benchmark of the port on the card
+    (`rehearse`: the bench at its tiny shapes, to try the phase on the
+    CPU):
+    (a) `entry()` at its defaults: `fn(*example_args)` after one warm
+        call, outputs [1, 25, 128, 3] and [1, 26, 127, 127], one fused
+        launch, its scores held to the plain version on the same tensors,
+        recomputed stage by stage (the peaks bit-equal to fn's);
+    (b) `python -m openpose_tpu_torch.bench` in this process (`bench.main`),
+        its JSON line logged: every row the card measures present and
+        not withheld (`BENCH_CARD_RATES` above 0.0), every number finite,
+        the closed loops at the accuracy phase's gates (AP 0.95, RMSE
+        2 px);
+    then, after the counts are read, the fused kernel against its plain
+    version on the bench's three post inputs (8 people, the crowd of 32,
+    the noise that fills every part's 127 peaks; batch 8 at 368x656) and
+    the sampler against its plain version on the 4-scale row's inputs."""
+    import math
+    import torch
+    from openpose_tpu_torch import bench, entry
+    from openpose_tpu_torch.ops import paf, paf_cuda, resize
+    t_phase = time.perf_counter()
+    shapes = bench.REHEARSAL if rehearse else bench.PUBLISHED
+    out = {}
+    reset_launches()
+
+    # (a) the flagship entry point
+    fn, (net, image) = entry.entry(device=device)
+    fn(net, image)              # warm: cuDNN's algorithm search
+    result = []
+    a = {"launches_per_call": launches_per_call(
+        "entry() fn", lambda: result.append(fn(net, image)))}
+    peaks, scores = result[0]
+    # the same stages by hand, for the kernel's check below
+    post = bench.Post(model.info, entry.NET_HW, device)
+    with torch.inference_mode():
+        entry_args = post.paf_args(net(resize.normalize_vgg(image),
+                                       torch.bfloat16))
+    assert torch.equal(entry_args[3], peaks), "entry() fn's stages differ"
+    a["shapes"] = [list(peaks.shape), list(scores.shape)]
+    assert a["shapes"] == [[1, 25, 128, 3], [1, 26, 127, 127]], a
+    assert bool(torch.isfinite(peaks).all() & torch.isfinite(scores).all())
+    if device.type == "cuda":
+        assert a["launches_per_call"] == {"paf_scores_fused": 1,
+                                          "sample_bicubic_scales": 0}, a
+
+    # (b) the benchmark's rows
+    row, chained = bench.main((["--cpu"] if device.type == "cpu" else [])
+                              + (["--rehearse"] if rehearse else []))
+    log("bench row: " + json.dumps(row))
+    out["row"], out["chained"] = row, chained
+    bad = [k for k in BENCH_CARD_RATES if not row.get(k, 0.0) > 0.0]
+    assert not bad, f"bench rows missing or withheld: {bad}"
+    assert all(math.isfinite(v) for v in row.values()
+               if not isinstance(v, str)), row
+    if not rehearse:
+        assert row["synthetic_ap"] >= 0.95, row
+        assert row["face_rmse_px"] < 2 and row["hand_rmse_px"] < 2, row
+    out["launches"] = read_launches("bench path", paf_cuda.paf_scores_fused,
+                                    paf_cuda.sample_bicubic_scales)
+
+    # the kernels on the phase's own tensors, after the counts are read:
+    # these launches only compare
+    a["kernel"] = fused_against_plain(entry_args, device,
+                                      iters=2 if rehearse else 20)
+    a["fn_max_abs_err"] = float((scores - paf.paf_scores_multiscale_reference(
+        *entry_args)).abs().max())
+    a["seconds"] = time.perf_counter() - t_phase
+    out["entry"] = a
+    log("bench (a) entry(): " + json.dumps(a))
+    assert a["kernel"]["mismatches"] == 0 \
+        and a["fn_max_abs_err"] <= KERNEL_TOL, a
+
+    post = bench.Post(model.info, shapes.net_hw, device)
+    _, sources = bench.headline_inputs(model.info, device, shapes)
+    out["kernel_on_post_inputs"] = {}
+    for name, src in sources.items():
+        with torch.inference_mode():
+            args = post.paf_args(src)
+        k = fused_against_plain(args, device, iters=2 if rehearse else 5)
+        out["kernel_on_post_inputs"][name] = k
+        log(f"bench: fused kernel on the {name} post input "
+            f"{list(src.shape)}: tol={KERNEL_TOL} " + json.dumps(k))
+        assert k["mismatches"] == 0 and k["max_abs_err"] <= KERNEL_TOL, k
+    if not rehearse:
+        assert out["kernel_on_post_inputs"]["worst"][
+            "peaks_per_part_mean"] == 127.0
+    inference, frames = bench.multiscale_inputs(model, device, shapes)
+    with torch.inference_mode():
+        sources = inference.net_outputs(frames)
+        peaks, _ = inference.decode(sources)
+    out["sampler_on_multiscale4"] = sampler_on_path(inference, sources,
+                                                    peaks, device)
+    out["max_abs_err"] = {
+        "paf_scores_fused": max([a["kernel"]["max_abs_err"],
+                                 a["fn_max_abs_err"]]
+                                + [k["max_abs_err"] for k in
+                                   out["kernel_on_post_inputs"].values()]),
+        "sample_bicubic_scales": out["sampler_on_multiscale4"][
+            "max_abs_err"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"bench phase: {out['seconds']:.1f} s")
+    return out
+
+
 def synthetic_frame(people, image_size, seed=7):
     """One scene of `people` drawn by the numpy renderer, its background
     from a fixed seed (so that views of one rig differ only by the
@@ -3518,6 +3640,7 @@ def main() -> int:
         report["threed"] = threed_phase(device)
     report["timing"] = timing_phase(
         device, model, report["train"]["f32"]["device_step_ms"])
+    report["bench"] = bench_phase(device, model)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -3533,22 +3656,25 @@ def main() -> int:
         "launches": sum(report[phase]["launches"]["paf_scores_fused"]
                         for phase in ("main_path", "whole_body", "wrapper",
                                       "runner", "accuracy", "train", "cli",
-                                      "tools", "mesh", "timing")),
+                                      "tools", "mesh", "timing",
+                                      "bench")),
         "max_abs_err": max(kernel["max_abs_err"], report["main_path"][
             "breakdown"]["paf_main_path_max_abs_err"], report["accuracy"][
             "kernel_on_loop_batch"]["max_abs_err"], report["train"][
             "kernel_on_trained_frame"]["max_abs_err"], report["tools"][
             "kernel_on_tutorial_09"]["max_abs_err"], report["timing"][
-            "speed_test"]["paf_max_abs_err"]),
+            "speed_test"]["paf_max_abs_err"], report["bench"][
+            "max_abs_err"]["paf_scores_fused"]),
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound"]["bound_ms"],
         "bound_by": kernel["bound"]["bound_by"], "library_ms": None}, {
         "name": "sample_bicubic_kernel", "route": "cuda", "source": source,
         "replaces": "openpose_tpu/ops/paf_pallas.py:335",
         "launches": sum(report[phase]["launches"]["sample_bicubic_scales"]
-                        for phase in ("people_capped", "mesh")),
+                        for phase in ("people_capped", "mesh", "bench")),
         "max_abs_err": max(sampler["max_abs_err"], report["people_capped"][
-            "sampler_on_path"]["max_abs_err"]),
+            "sampler_on_path"]["max_abs_err"], report["bench"][
+            "max_abs_err"]["sample_bicubic_scales"]),
         "ms": sampler["ms"], "plain_ms": sampler["plain_ms"],
         "bound_ms": sampler["bound"]["bound_ms"],
         "bound_by": sampler["bound"]["bound_by"], "library_ms": None}]}))

@@ -59,6 +59,13 @@ def _window_cubic_matrix(upsample: int) -> np.ndarray:
     return mat.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _window_cubic_tensor(upsample: int, device: torch.device) -> torch.Tensor:
+    """`_window_cubic_matrix` on a device, copied there once (a copy from
+    host memory on every call would wait for the card)."""
+    return torch.from_numpy(_window_cubic_matrix(upsample)).to(device)
+
+
 def channel_argmax_refined(maps: torch.Tensor,
                            upsample: int = 8) -> torch.Tensor:
     """[N, h, w, C] net-output maps -> [N, C, 3] (x, y, score) in upsampled
@@ -78,7 +85,7 @@ def channel_argmax_refined(maps: torch.Tensor,
     patch = torch.gather(rows, 3, xs[:, :, None, :].expand(n, c, _WIN, _WIN))
 
     up_lo, up_n = _win_params(upsample)
-    wmat = torch.from_numpy(_window_cubic_matrix(upsample)).to(maps.device)
+    wmat = _window_cubic_tensor(upsample, maps.device)
     resize._require_full_f32(patch)
     up = torch.matmul(torch.matmul(wmat, patch), wmat.T)     # [n, c, U, U]
     uflat = up.reshape(n, c, up_n * up_n)

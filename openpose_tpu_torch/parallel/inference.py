@@ -308,8 +308,12 @@ class TopDownInference:
         if k == 0:
             return out
         tr = torch.from_numpy(np.ascontiguousarray(transforms[:, :k]))
-        crops = warp.crop_affine_batch(x.to(torch.float32),
-                                       tr.to(self.device), s)
+        if self.device.type == "cuda":
+            # through pinned memory: a copy from pageable memory would
+            # wait for the card
+            tr = tr.pin_memory()
+        crops = warp.crop_affine_batch(
+            x.to(torch.float32), tr.to(self.device, non_blocking=True), s)
         maps = self.net(resize.normalize_vgg(crops.reshape(b * k, s, s, 3)),
                         self.compute_dtype)
         out[:, :k] = maximum.channel_argmax_refined(maps).reshape(
