@@ -221,7 +221,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "255 none (flags.hpp:19)")
     p.add_argument("--profile_speed", type=int, default=-1,
                    help="print averaged per-stage ms every N frames "
-                        "(reference Profiler, --profile_speed)")
+                        "(reference Profiler, --profile_speed); on the "
+                        "batched path the host time of each span and the "
+                        "counters' totals: the device's time shows in "
+                        "pose.fetch.wait and topdown.fetch")
     p.add_argument("--max_frames", type=int, default=-1,
                    help="stop after N frames (benchmark/debug)")
     p.add_argument("--batch", type=int, default=0,
@@ -474,6 +477,8 @@ def run_fast_path(args, device=None, mesh=None) -> int:
     raw_rows = []
 
     def on_result(res):
+        if report is not None:
+            report.frame()
         # results arrive in frame order (VideoRunner resolves in submission
         # order), which the sliding-window smoother relies on
         if smoother is None:
@@ -485,53 +490,67 @@ def run_fast_path(args, device=None, mesh=None) -> int:
                                              res.scores):
                 emit_result(idx, kp, sc)
 
+    # --profile_speed N: the inference layers' spans, averaged every N
+    # frames (utils/profiler.py::TRACE)
+    report = None
+    if args.profile_speed > 0:
+        from openpose_tpu_torch.utils.profiler import SpanReport
+        report = SpanReport(args.profile_speed, "" if mesh is None
+                            else f"[rank {dist.get_rank()}] ")
     t0 = time.time()
-    if whole_body:
-        names = _NameByIndex(_pathlib.Path(args.video).stem)
+    try:
+        if whole_body:
+            names = _NameByIndex(_pathlib.Path(args.video).stem)
 
-        def on_wb(idx, res):
-            name = names.get(idx)
-            if json_dir is not None:
-                json_io.save_people_json(
-                    str(json_dir / f"{name}_keypoints.json"),
-                    pose_keypoints=res.pose_keypoints,
-                    face_keypoints=res.face_keypoints,
-                    hand_left_keypoints=res.hand_left_keypoints,
-                    hand_right_keypoints=res.hand_right_keypoints)
-            if keypoint_saver is not None:
-                keypoint_saver.save([res.pose_keypoints], name, "pose")
-            if coco_saver is not None and res.pose_keypoints.size:
-                coco_record(
-                    idx, res.pose_keypoints, res.pose_scores,
-                    json_io.image_id_from_name(name),
-                    face_keypoints=res.face_keypoints,
-                    hand_left_keypoints=res.hand_left_keypoints,
-                    hand_right_keypoints=res.hand_right_keypoints,
-                    frame_number=idx)
-            if args.cli_verbose > 0 \
-                    and (idx + 1) % max(int(args.cli_verbose), 1) == 0:
-                print(f"Processed {idx + 1} frames")
+            def on_wb(idx, res):
+                if report is not None:
+                    report.frame()
+                name = names.get(idx)
+                if json_dir is not None:
+                    json_io.save_people_json(
+                        str(json_dir / f"{name}_keypoints.json"),
+                        pose_keypoints=res.pose_keypoints,
+                        face_keypoints=res.face_keypoints,
+                        hand_left_keypoints=res.hand_left_keypoints,
+                        hand_right_keypoints=res.hand_right_keypoints)
+                if keypoint_saver is not None:
+                    keypoint_saver.save([res.pose_keypoints], name, "pose")
+                if coco_saver is not None and res.pose_keypoints.size:
+                    coco_record(
+                        idx, res.pose_keypoints, res.pose_scores,
+                        json_io.image_id_from_name(name),
+                        face_keypoints=res.face_keypoints,
+                        hand_left_keypoints=res.hand_left_keypoints,
+                        hand_right_keypoints=res.hand_right_keypoints,
+                        frame_number=idx)
+                if args.cli_verbose > 0 \
+                        and (idx + 1) % max(int(args.cli_verbose), 1) == 0:
+                    print(f"Processed {idx + 1} frames")
 
-        results = VideoRunner.run_video_whole_body(
-            wb, args.video, frame_step=args.frame_step, on_result=on_wb,
-            max_frames=args.max_frames, batch_size=batch)
-    elif args.image_dir:
-        paths = sorted(
-            p for p in _pathlib.Path(args.image_dir).iterdir()
-            if p.suffix.lower() in producers.IMAGE_EXTENSIONS)
-        last = args.frame_last if args.frame_last >= 0 else len(paths) - 1
-        paths = paths[args.frame_first:last + 1:args.frame_step]
-        if args.max_frames >= 0:
-            paths = paths[:args.max_frames]
-        names.update({i: p.stem for i, p in enumerate(paths)})
-        results = runner.run_files([str(p) for p in paths],
-                                   on_result=on_result)
-    else:
-        stem = _pathlib.Path(args.video).stem
-        names = _NameByIndex(stem)
-        results = runner.run_video(args.video, frame_step=args.frame_step,
-                                   max_frames=args.max_frames,
-                                   on_result=on_result)
+            results = VideoRunner.run_video_whole_body(
+                wb, args.video, frame_step=args.frame_step, on_result=on_wb,
+                max_frames=args.max_frames, batch_size=batch)
+        elif args.image_dir:
+            paths = sorted(
+                p for p in _pathlib.Path(args.image_dir).iterdir()
+                if p.suffix.lower() in producers.IMAGE_EXTENSIONS)
+            last = args.frame_last if args.frame_last >= 0 \
+                else len(paths) - 1
+            paths = paths[args.frame_first:last + 1:args.frame_step]
+            if args.max_frames >= 0:
+                paths = paths[:args.max_frames]
+            names.update({i: p.stem for i, p in enumerate(paths)})
+            results = runner.run_files([str(p) for p in paths],
+                                       on_result=on_result)
+        else:
+            stem = _pathlib.Path(args.video).stem
+            names = _NameByIndex(stem)
+            results = runner.run_video(
+                args.video, frame_step=args.frame_step,
+                max_frames=args.max_frames, on_result=on_result)
+    finally:
+        if report is not None:
+            report.close()
     n = len(results)
     if mesh is not None:
         # every rank's frame count, COCO records and unsmoothed frames to

@@ -16,6 +16,9 @@ With a `mesh` the body, face and hand stages share it: every rank calls
 with its own rows of the global batch (`local_rows`), and the host
 assembly, KeepTopNPeople and the map-back run on each rank for its own
 frames.
+
+Each stage is a span (`utils/profiler.py::TRACE`, off unless turned on):
+`wholebody.body`, `wholebody.face`, `wholebody.hand`.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from openpose_tpu_torch.parallel.inference import (
     PoseInference, TopDownInference)
 from openpose_tpu_torch.params import (
     FACE_NUMBER_PARTS, HAND_NUMBER_PARTS, PoseModel)
+from openpose_tpu_torch.utils.profiler import TRACE
 
 
 @dataclasses.dataclass
@@ -97,6 +101,11 @@ class WholeBodyInference:
     def body_stage(self, frames: torch.Tensor,
                    net_output=None) -> List[WholeBodyResult]:
         """Body net, fetch, assembly and KeepTopNPeople per frame."""
+        with TRACE.span("wholebody.body"):
+            return self._body_stage(frames, net_output)
+
+    def _body_stage(self, frames: torch.Tensor,
+                    net_output) -> List[WholeBodyResult]:
         if net_output is not None:
             if not self.body.net_bypass:
                 raise ValueError("net_output injection needs a "
@@ -132,18 +141,20 @@ class WholeBodyInference:
                    results: List[WholeBodyResult]) -> None:
         if self.face is None:
             return
-        for res, kp in zip(results, self.face.extract(
-                frames, [self.face_rects(r.pose_keypoints) for r in results],
-                FACE_NUMBER_PARTS)):
-            res.face_keypoints = kp
+        with TRACE.span("wholebody.face"):
+            rects = [self.face_rects(r.pose_keypoints) for r in results]
+            for res, kp in zip(results, self.face.extract(
+                    frames, rects, FACE_NUMBER_PARTS)):
+                res.face_keypoints = kp
 
     def hand_stage(self, frames: torch.Tensor,
                    results: List[WholeBodyResult]) -> None:
         if self.hand is None:
             return
-        for res, kp in zip(results, self.hand.extract(
-                frames, [self.hand_rects(r.pose_keypoints) for r in results],
-                HAND_NUMBER_PARTS)):
-            # interleaved (left, right) per person
-            res.hand_left_keypoints = kp[0::2]
-            res.hand_right_keypoints = kp[1::2]
+        with TRACE.span("wholebody.hand"):
+            rects = [self.hand_rects(r.pose_keypoints) for r in results]
+            for res, kp in zip(results, self.hand.extract(
+                    frames, rects, HAND_NUMBER_PARTS)):
+                # interleaved (left, right) per person
+                res.hand_left_keypoints = kp[0::2]
+                res.hand_right_keypoints = kp[1::2]
