@@ -25,7 +25,11 @@ with a non-zero exit when it fails:
    through batch-8 `PoseInference`, timed; the PAF kernel's launch count in
    this phase must be > 0; a per-stage breakdown (with the sampled PAF
    backend timed against the fused one at K = 127) and a CPU-vs-GPU check
-   of the CNN follow;
+   of the CNN follow; then the graph phase: `PoseInference`'s CUDA graphs
+   (batch 1 and 8 at 368x656 with 127 peaks, net_bypass, 2 scales of raw
+   frames) bit-equal to the eager calls, their counters and launches, an
+   output held across the next call, and the host's and the card's ms a
+   call, eager against replayed;
 6. people-capped multi-scale: batch-4 `PoseInference` at 4 scales of
    736x1312 with a 16-peak budget, on pre-sized frames and on 1080x1920
    raw frames; the sampler must launch and the fused kernel must not; the
@@ -121,6 +125,8 @@ refinement's shape (8 crops of 368x368, thresholds 0.02 and 0.01).
 
 `python3 chip_smoke.py --capped-trace` runs the people-capped call alone,
 timed and traced (to set two trees side by side on one card).
+`python3 chip_smoke.py --graphs` runs the graph phase alone (about 40 s
+with the build).
 `python3 chip_smoke.py --mesh-scaling` runs 1, 2 and 4 ranks, one per
 card, up to the cards there are: serving frames/s and train img/s of each
 world against one rank.
@@ -701,6 +707,131 @@ def main_path_phase(device, model, frame_hw=(720, 1280), net_h=368, batch=8,
     res["breakdown"] = stage_breakdown(model, batch_frames, device, iters)
     res["cnn_cpu_vs_gpu"] = cnn_cpu_check(model, device)
     return res
+
+
+def graph_phase(device, model, net_hw=(368, 656), batches=(1, 8),
+                iters=20):
+    """`PoseInference`'s CUDA graphs (`parallel/graphs.py`) at the
+    benchmark cells' shapes (batch 1 and 8, 368x656, 127 peaks): every
+    replayed call bit-equal to the eager bodies on the CNN outputs, peaks
+    and scores; the counters (one eager call and one capture a body, then
+    replays); one fused launch a call, replayed or not; an output held
+    across the next call unchanged; the host's ms a call (the dispatch,
+    no sync) and the card's (CUDA events), eager against replay.  Then
+    the same equality with net_bypass (rendered people), at 2 scales of
+    raw 720x1280 frames and, with a second card, on cuda:1 while another
+    card is the current device."""
+    import numpy as np
+    import torch
+    from openpose_tpu_torch import synthetic
+    from openpose_tpu_torch.ops import paf
+    from openpose_tpu_torch.parallel import graphs
+    from openpose_tpu_torch.parallel.inference import PoseInference
+    from openpose_tpu_torch.utils.profiler import TRACE
+
+    rng = np.random.RandomState(3)
+    out = {}
+
+    def check(name, inference, inputs, other, before=lambda: None):
+        """Three calls (eager, capture, replay) on `inputs` and a replay on
+        `other`, frames the capture never saw, each against the eager
+        bodies on its frames; returns the largest |diff| of any output
+        (CNN sources, peaks, scores).  `before` runs before each call."""
+        @torch.inference_mode()
+        def eager(x=inputs):
+            src = inference._net([x], graphs.eager_stage) \
+                if not inference.net_bypass else [x]
+            return (*src, *inference._decode(src, graphs.eager_stage))
+
+        def call(x=inputs):
+            before()
+            src = inference.net_outputs(x)
+            return (*src, *inference.decode(src))
+        want, want_other = eager(), eager(other)
+        assert not torch.equal(want[0], want_other[0]), \
+            f"{name}: the two inputs give one CNN output"
+        TRACE.enable()
+        try:
+            got = [(call(), want) for _ in range(3)]
+            got.append((call(other), want_other))
+            counters = TRACE.drain()["counters"]
+        finally:
+            TRACE.disable()
+        n_bodies = 1 if inference.net_bypass else 2
+        assert counters == {"pose.graph.eager": n_bodies,
+                            "pose.graph.captures": n_bodies,
+                            "pose.graph.replays": 3 * n_bodies}, counters
+        diff = max(float((g - w).abs().max()) for outs, wanted in got
+                   for g, w in zip(outs, wanted, strict=True))
+        held = call()
+        kept = [t.clone() for t in held]
+        call(other)
+        _sync(inference.device)
+        assert all(torch.equal(h, k) for h, k in zip(held, kept)), \
+            f"{name}: a held output changed under the next call"
+        counts = want[-2][0, :, 0, 0].int().tolist()
+        log(f"graphs, {name}: replay against eager max |diff| {diff}; "
+            f"counters {counters}; peaks a part {counts}")
+        assert diff == 0.0, f"{name}: replay differs from eager by {diff}"
+        return diff, eager, call
+
+    for batch in batches:
+        inference = PoseInference(model, net_hw=net_hw, device=device)
+        frames = torch.from_numpy(scene_frames(rng, batch, net_hw)).to(device)
+        other = torch.from_numpy(scene_frames(rng, batch, net_hw)).to(device)
+        diff, eager, call = check(f"batch {batch}", inference, frames, other)
+        per_call = launches_per_call(f"graphs, batch {batch}", call)
+        assert per_call == {"paf_scores_fused": 1,
+                            "sample_bicubic_scales": 0}, per_call
+        res = {"max_abs_diff": diff, "launches_per_call": per_call}
+        for name, fn in (("eager", eager), ("replay", call)):
+            fn()
+            _sync(device)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            host = (time.perf_counter() - t0) * 1e3 / iters
+            _sync(device)
+            res[name] = {"host_ms_per_call": host,
+                         "event_ms_per_call": timed(fn, 2, iters, device)}
+        log(f"graphs, batch {batch}: eager {res['eager']}, replay "
+            f"{res['replay']} (host: the dispatch; event: the card's pace)")
+        out[f"batch_{batch}"] = res
+
+    info = model.info
+    pairs, map_idx = paf.pair_tables(info)
+    maps = [torch.from_numpy(synthetic.make_targets(
+        synthetic.random_people(rng, 3, net_hw)[None], pairs, map_idx,
+        net_hw, info.num_parts, info.heatmap_channels)).to(device)
+        for _ in range(2)]
+    bypass = PoseInference(model, net_hw=net_hw, device=device,
+                           net_bypass=True)
+    out["net_bypass"] = check("net_bypass", bypass, maps[0], maps[1])[0]
+    raw_hw = (720, 1280)
+    scaled = PoseInference(model, net_hw=net_hw, device=device,
+                           scale_number=2, frame_hw=raw_hw)
+    raw = [torch.from_numpy(scene_frames(rng, 2, raw_hw)).to(device)
+           for _ in range(2)]
+    out["two_scales_raw"] = check("2 scales, raw 720x1280", scaled, *raw)[0]
+    if torch.cuda.device_count() > 1:
+        # graphs of a card that is not the current device; the fused
+        # kernel's launcher makes its card current, so each call first
+        # makes the phase's card current again
+        from openpose_tpu_torch.models import zoo
+        card, current = torch.device("cuda", 1), device.index or 0
+        assert current != 1, "the check wants cuda:1 not current"
+        inference = PoseInference(zoo.load_pose_model(seed=0, device=card),
+                                  net_hw=net_hw, device=card)
+        frames = [torch.from_numpy(scene_frames(rng, 1, net_hw)).to(card)
+                  for _ in range(2)]
+        out["not_current_card"] = check(
+            f"batch 1 on cuda:1, cuda:{current} current", inference,
+            *frames, before=lambda: torch.cuda.set_device(current))[0]
+        torch.cuda.set_device(current)
+        inference.decode(inference.net_outputs(frames[1]))
+        assert torch.cuda.current_device() == current, \
+            "a replay left another card current"
+    return out
 
 
 def stage_breakdown(model, frames, device, iters):
@@ -3618,9 +3749,13 @@ def main() -> int:
     if sys.argv[1:] == ["--mesh-scaling"]:
         mesh_scaling()
         return 0
+    if sys.argv[1:] == ["--graphs"]:
+        log(json.dumps({"graphs": graph_phase(device, model)}))
+        return 0
     report["kernel"] = kernel_phase(device, model.info)
     report["sampler"] = sampler_phase(device)
     report["main_path"] = main_path_phase(device, model)
+    report["graphs"] = graph_phase(device, model)
     report["people_capped"] = people_capped_phase(device, model)
     report["whole_body"] = whole_body_phase(device, model)
     report["injection"] = injection_phase(device, model)

@@ -11,9 +11,18 @@ neighbouring pixel, which moves that line's mean by one sample's share: at
 most 0.1% of the scores may differ, each by at most 0.02.  Then one test for each of the extractor and inference repairs
 (`max_peaks`, `maximize_positives` and `connect_params`, `keep_heatmaps`
 and `net_resolution_dynamic`, the inference budget and thresholds).
+
+Last, the CUDA graphs of `parallel/graphs.py`: on the CPU, that the gate
+keeps every call eager and counts it, refuses a model-sharded net, and
+that the key cache drops the least recently used key; on a card (these
+skip without one, and `chip_smoke.py --graphs` runs the same checks
+there), that a replay is bit-equal to the eager call on new frames too,
+on a card that is not the current device as well, keeps a held output,
+counts captures, replays and the fused kernel's launches.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import jax
@@ -29,8 +38,11 @@ from openpose_tpu.parallel import mesh as mesh_lib
 from openpose_tpu.parallel.inference import ShardedPoseInference
 from openpose_tpu.pose.extractor import PoseExtractor as JaxPoseExtractor
 from openpose_tpu_torch.models import checkpoint, zoo
+from openpose_tpu_torch.ops import paf_cuda
+from openpose_tpu_torch.parallel import graphs
 from openpose_tpu_torch.parallel.inference import PoseInference
 from openpose_tpu_torch.pose.extractor import PoseExtractor
+from openpose_tpu_torch.utils.profiler import TRACE
 
 
 def _mesh(n):
@@ -252,3 +264,237 @@ def test_inference_takes_budget_and_thresholds(mpi):
     assert peaks_loose.shape == (2, 15, 9, 3) and scores.shape[-1] == 8
     assert (peaks_loose[:, :, 0, 0] >= peaks_strict[:, :, 0, 0]).all()
     assert peaks_loose[:, :, 0, 0].sum() > peaks_strict[:, :, 0, 0].sum()
+
+
+# --- CUDA graphs (parallel/graphs.py) -----------------------------------
+
+
+@pytest.fixture
+def tracer():
+    TRACE.drain()
+    TRACE.enable()
+    try:
+        yield TRACE
+    finally:
+        TRACE.disable()
+        TRACE.drain()
+
+
+def test_graph_gate_keeps_cpu_calls_eager(mpi, tracer):
+    """On the CPU every call runs the eager bodies, as before graphs: no key
+    is kept, the outputs equal the bodies' bit for bit, and
+    `pose.graph.eager` counts each call of net_outputs and decode; a
+    net_bypass net_outputs (an upload and a cast) counts nothing."""
+    _, port_model = mpi
+    rng = np.random.RandomState(6)
+    frames = rng.randint(0, 255, (2, 64, 80, 3)).astype(np.uint8)
+    inf = PoseInference(port_model, compute_dtype=torch.float32,
+                        device="cpu", **MPI_KW)
+    want_src = inf._net([torch.from_numpy(frames)], graphs.eager_stage)
+    want = [*want_src, *inf._decode(want_src, graphs.eager_stage)]
+    tracer.drain()
+    for _ in range(3):
+        src = inf.net_outputs(frames)
+        got = [*src, *inf.decode(src)]
+        assert len(got) == len(want)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert not inf._graphs._entries
+    assert tracer.drain()["counters"] == {"pose.graph.eager": 6}
+
+    bypass = PoseInference(port_model, net_hw=(64, 80), net_bypass=True,
+                           device="cpu")
+    maps = rng.uniform(-0.2, 1.0, (2, 8, 10, 44)).astype(np.float32)
+    bypass.decode(bypass.net_outputs(maps))
+    assert tracer.drain()["counters"] == {"pose.graph.eager": 1}
+
+
+def test_graph_gate_refuses_a_model_sharded_mesh():
+    """A net sharded over a ``model`` dimension gathers its weights with
+    collectives at use, so its calls stay eager on a card too; so do calls
+    on host tensors, and every call on the CPU."""
+    def gate(device, model_shards, tensors=()):
+        mesh = types.SimpleNamespace(shape=(4 // model_shards, model_shards),
+                                     mesh_dim_names=("data", "model"))
+        owner = types.SimpleNamespace(device=torch.device(device), mesh=mesh)
+        return PoseInference._graphable(owner, tensors)
+    assert not gate("cuda", 2)
+    assert not gate("cuda", 4)
+    assert not gate("cuda", 1, [torch.zeros(1)])
+    assert not gate("cpu", 1)
+
+
+def test_graph_cache_evicts_least_recently_used(monkeypatch, tracer):
+    """Per key: eager, then capture and replay, then replay; beyond
+    `GraphCache.KEYS` keys the least recently used one goes, and comes
+    back as a new key (eager).  The graphs are stood in for by the eager
+    body here: only a card captures."""
+    class Replayed:
+        def __init__(self, body, inputs, device):
+            self.body = body
+
+        def replay(self, inputs):
+            return self.body(inputs, graphs.eager_stage)
+    monkeypatch.setattr(graphs, "_Graphed", Replayed)
+    cache = graphs.GraphCache(torch.device("cpu"))
+
+    def body(inputs, stage):
+        with stage("test.body"):
+            return [inputs[0] + 1]
+
+    def call(n):
+        out = cache.run(body, [torch.zeros(n)], True)
+        assert torch.equal(out[0], torch.ones(n))
+
+    def keys():
+        return [key[2][0][0] for key in cache._entries]   # the length
+    assert graphs.GraphCache.KEYS == 8
+    for _ in range(3):
+        call(1)
+    assert tracer.drain()["counters"] == {"pose.graph.eager": 1,
+                                          "pose.graph.captures": 1,
+                                          "pose.graph.replays": 2}
+    for n in range(2, 9):
+        call(n)
+    assert keys() == [1, 2, 3, 4, 5, 6, 7, 8]
+    call(1)                 # replayed: now the most recent
+    call(9)                 # a ninth key: 2, the least recent, goes
+    assert keys() == [3, 4, 5, 6, 7, 8, 1, 9]
+    call(2)                 # seen again as new: eager, and 3 goes
+    assert keys() == [4, 5, 6, 7, 8, 1, 9, 2]
+    assert tracer.drain()["counters"] == {"pose.graph.eager": 9,
+                                          "pose.graph.replays": 1}
+
+
+@pytest.fixture(scope="module")
+def card():
+    """The card; the tests that replay graphs skip without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: only a card captures CUDA graphs")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def card_body25(card):
+    return zoo.load_pose_model(seed=0, device=card)
+
+
+def _card_case(case, rng):
+    """(PoseInference keywords, two different inputs) at the cells'
+    368x656."""
+    kw = dict(net_hw=(368, 656))
+    if case == "net_bypass":
+        kw["net_bypass"] = True
+        shape = (1, 46, 82, 78)
+        return kw, [rng.uniform(-0.2, 1.0, shape).astype(np.float32)
+                    for _ in range(2)]
+    if case == "two_scales_raw":
+        kw.update(scale_number=2, frame_hw=(720, 1280))
+        shape = (2, 720, 1280, 3)
+    else:
+        shape = (int(case[len("batch"):]), 368, 656, 3)
+    return kw, [rng.randint(0, 255, shape).astype(np.uint8)
+                for _ in range(2)]
+
+
+def _outputs(inf, inputs):
+    src = inf.net_outputs(inputs)
+    return [*src, *inf.decode(src)]
+
+
+@torch.inference_mode()
+def _eager(inf, inputs):
+    """The bodies of net_outputs and decode, run eagerly on `inputs`."""
+    x = torch.as_tensor(inputs)
+    src = [x.to(inf.device).float()] if inf.net_bypass \
+        else inf._net([x], graphs.eager_stage)
+    return [*src, *inf._decode(src, graphs.eager_stage)]
+
+
+def _replays_match_eager(inf, inputs, other, before=lambda: None):
+    """Eager, capturing and replayed calls of one shape, the replays also
+    on frames the capture never saw: every output (CNN sources, peaks,
+    scores) equal to the eager bodies on the same frames, bit for bit.
+    `before` runs before each call."""
+    def call(x):
+        before()
+        return _outputs(inf, x)
+    first, captured = call(inputs), call(inputs)
+    replayed, again = call(other), call(inputs)
+    want, want_other = _eager(inf, inputs), _eager(inf, other)
+    for got, wanted in ((first, want), (captured, want), (again, want),
+                        (replayed, want_other)):
+        assert len(got) == len(wanted)
+        assert all(torch.equal(g, w) for g, w in zip(got, wanted))
+    # the frames differ, so a stage frozen at capture would show
+    assert not torch.equal(want_other[0], want[0])
+    return replayed
+
+
+@pytest.mark.parametrize("case", ["batch1", "batch8", "net_bypass",
+                                  "two_scales_raw"])
+def test_graph_replay_bit_equal_to_eager(card, card_body25, case):
+    """The first call of a shape is eager; the second captures and
+    replays, later ones replay, on the same frames and on others: each
+    equal to the eager bodies on its frames bit for bit."""
+    kw, (inputs, other) = _card_case(case, np.random.RandomState(7))
+    inf = PoseInference(card_body25, device=card, **kw)
+    _replays_match_eager(inf, inputs, other)
+
+
+def test_graph_replay_on_a_card_that_is_not_current(card):
+    """A `PoseInference` on cuda:1, called with cuda:0 the current device,
+    captures and replays on cuda:1: its replays match its eager calls on
+    new frames, its outputs are on cuda:1, and a replay leaves cuda:0
+    current.  (The fused kernel's launcher makes its card current, so
+    cuda:0 is set again before each call.)"""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards: the graphs' card must not be "
+                    "the current one")
+    other_card = torch.device("cuda", 1)
+    model = zoo.load_pose_model(seed=0, device=other_card)
+    kw, (inputs, other) = _card_case("batch1", np.random.RandomState(11))
+    inf = PoseInference(model, device=other_card, **kw)
+    replayed = _replays_match_eager(inf, inputs, other,
+                                    before=lambda: torch.cuda.set_device(0))
+    assert all(t.device == other_card for t in replayed)
+    torch.cuda.set_device(0)
+    _outputs(inf, other)
+    assert torch.cuda.current_device() == 0
+
+
+def test_graph_output_held_across_the_next_call(card, card_body25):
+    """Outputs are clones: the next replay, on other frames, leaves an
+    output a caller holds as it was."""
+    kw, (first, second) = _card_case("batch8", np.random.RandomState(8))
+    inf = PoseInference(card_body25, device=card, **kw)
+    _outputs(inf, first)
+    held = _outputs(inf, first)
+    kept = [t.clone() for t in held]
+    other = _outputs(inf, second)
+    torch.cuda.synchronize()
+    assert all(torch.equal(h, k) for h, k in zip(held, kept))
+    assert not torch.equal(other[0], held[0])
+
+
+def test_graph_counters_on_card(card, card_body25, tracer):
+    """N calls of one shape: one eager call, one capture, N - 1 replays,
+    for net_outputs and decode each."""
+    kw, (inputs, _) = _card_case("batch1", np.random.RandomState(9))
+    inf = PoseInference(card_body25, device=card, **kw)
+    n = 5
+    for _ in range(n):
+        _outputs(inf, inputs)
+    assert tracer.drain()["counters"] == {
+        "pose.graph.eager": 2, "pose.graph.captures": 2,
+        "pose.graph.replays": 2 * (n - 1)}
+
+
+def test_graph_replay_counts_fused_launches(card, card_body25):
+    """A replay passes the kernel wrapper by, and still counts its launch:
+    one fused launch a call, eager, capturing or replayed."""
+    kw, (inputs, _) = _card_case("batch1", np.random.RandomState(10))
+    inf = PoseInference(card_body25, device=card, **kw)
+    for _ in range(4):
+        before = paf_cuda.paf_scores_fused.launches
+        _outputs(inf, inputs)
+        assert paf_cuda.paf_scores_fused.launches == before + 1

@@ -153,7 +153,8 @@ def test_pose_spans_once_a_call_with_parent_and_step(scene):
         ("pose.decode.paf", "pose.decode", step),
         ("pose.fetch.wait", None, step)] + [
         ("pose.assemble", None, step)] * BATCH
-    assert got["counters"] == {}
+    # the CNN's call and the decode's, both eager: the CPU replays no graph
+    assert got["counters"] == {"pose.graph.eager": 2}
 
 
 def test_whole_body_spans_and_crop_counters(scene):
@@ -177,9 +178,11 @@ def test_whole_body_spans_and_crop_counters(scene):
     # every person found gives an active face and two active hands, and
     # every frame computes the leading slots up to the most people
     most, total = max(PEOPLE), sum(PEOPLE)
+    # and the body's CNN and decode are one eager call each (its
+    # net_bypass upload counts nothing)
     assert got["counters"] == {
         "topdown.crops_computed": BATCH * most * 3,
-        "topdown.crops_active": total * 3}
+        "topdown.crops_active": total * 3, "pose.graph.eager": 2}
 
 
 @pytest.mark.parametrize("what", sorted(STEPS))
@@ -371,7 +374,13 @@ def test_profile_speed_prints_span_averages_on_the_batched_path(
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("[profiler]")]
     line = re.compile(r"\[profiler\] ([\w.]+): \d+\.\d\d ms avg over (\d+)$")
-    parsed = [line.match(ln) for ln in lines]
+    counter = re.compile(r"\[profiler\] pose\.graph\.eager: (\d+) over \d+ "
+                         r"frames$")
+    eager = [int(counter.match(ln).group(1)) for ln in lines
+             if counter.match(ln)]
+    # the CPU runs every call eagerly: two batches, a CNN and a decode each
+    assert eager and eager[-1] == 4, lines
+    parsed = [line.match(ln) for ln in lines if not counter.match(ln)]
     assert all(parsed), lines
     # after frame 2, then at the end: every span of the batched path twice
     names = [m.group(1) for m in parsed]
