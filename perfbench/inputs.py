@@ -8,9 +8,12 @@
   figures spread across the frame), drawn per frame;
 * rendered net outputs: a frozen copy of the port's `synthetic.make_targets`
   (Gaussian part maps, background, unit-vector limb bands), i.e. what a
-  trained BODY_25 net outputs for those people, kept on the device.  Random
-  weights find no real people, so the decode and the stages after it are
-  fed these, through the program's injection path.
+  trained net of the configuration outputs for those people, kept on the
+  device.  People are drawn as BODY_25 and projected onto the
+  configuration's own parts (its `keypoints_from_body25`: one BODY_25 index
+  a part, in the configuration's order; all 25 in order without it).
+  Random weights find no real people, so the decode and the stages after
+  it are fed these, through the program's injection path.
 
 Every draw takes its own stream, named by what it makes, from one
 `numpy.random.SeedSequence` of the seed, so the same seed gives the same
@@ -182,13 +185,38 @@ def make_targets(keypoints: np.ndarray, pairs: np.ndarray,
 
 
 def rendered(cfg: dict, people: np.ndarray) -> np.ndarray:
-    """The net outputs a trained body net gives for `people` [B, P, 25, 3]."""
+    """The net outputs a trained body net of `cfg` gives for `people`
+    [B, P, 25, 3] (BODY_25 parts).  Raises ValueError where the
+    configuration's parts, pairs and PAF channels do not fit its net, so
+    that traffic for another net stops the run at set-up."""
     parts = cfg["num_parts"]
     pairs = np.asarray(cfg["pairs"], np.int64).reshape(-1, 2)
-    map_idx = np.asarray(cfg["map_idx"], np.int64).reshape(-1, 2) + parts + 1
+    map_idx = np.asarray(cfg["map_idx"], np.int64).reshape(-1, 2)
     channels = cnn.output_channels(cnn.load_spec(cfg["spec"]))
-    return make_targets(people, pairs, map_idx, tuple(cfg["net_hw"]), parts,
-                        channels)
+    drawn = len(BODY25_TEMPLATE)
+    picked = np.asarray(cfg.get("keypoints_from_body25", range(drawn)),
+                        np.int64)
+    faults = []
+    if picked.size != parts:
+        faults.append(f"{picked.size} parts drawn for num_parts {parts} "
+                      "(keypoints_from_body25 maps BODY_25's parts onto "
+                      "the configuration's)")
+    if ((picked < 0) | (picked >= drawn)).any():
+        faults.append("keypoints_from_body25 names a part outside BODY_25's"
+                      f" 0-{drawn - 1}")
+    if parts + 1 + 2 * len(pairs) != channels:
+        faults.append(f"num_parts + 1 + 2 x {len(pairs)} pairs is not the "
+                      f"{channels} output channels of spec {cfg['spec']!r}")
+    if ((pairs < 0) | (pairs >= parts)).any():
+        faults.append(f"a pair names a part outside 0-{parts - 1}")
+    if ((map_idx < 0) | (map_idx >= 2 * len(pairs))).any():
+        faults.append("map_idx names a PAF channel outside "
+                      f"0-{2 * len(pairs) - 1}")
+    if faults:
+        raise ValueError(f"configuration {cfg['name']!r}: "
+                         + "; ".join(faults))
+    return make_targets(people[:, :, picked], pairs, map_idx + parts + 1,
+                        tuple(cfg["net_hw"]), parts, channels)
 
 
 class Pool:
