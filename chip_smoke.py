@@ -156,6 +156,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
 import json
 import pathlib
 import shutil
@@ -712,21 +713,25 @@ def main_path_phase(device, model, frame_hw=(720, 1280), net_h=368, batch=8,
 def graph_phase(device, model, net_hw=(368, 656), batches=(1, 8),
                 iters=20):
     """`PoseInference`'s CUDA graphs (`parallel/graphs.py`) at the
-    benchmark cells' shapes (batch 1 and 8, 368x656, 127 peaks): every
-    replayed call bit-equal to the eager bodies on the CNN outputs, peaks
-    and scores; the counters (one eager call and one capture a body, then
-    replays); one fused launch a call, replayed or not; an output held
-    across the next call unchanged; the host's ms a call (the dispatch,
-    no sync) and the card's (CUDA events), eager against replay.  Then
-    the same equality with net_bypass (rendered people), at 2 scales of
-    raw 720x1280 frames and, with a second card, on cuda:1 while another
-    card is the current device."""
+    benchmark cells' shapes (batch 1 and 8, 368x656, 127 peaks), for
+    BODY_25 and COCO_18: every replayed call bit-equal to the eager bodies
+    on the CNN outputs, peaks and scores; the counters (one eager call and
+    one capture a body, then replays); the CNN's graphs, a trunk and a
+    stages graph a scale, replayed inside their spans `pose.net.trunk` and
+    `pose.net.stages` in `pose.net`; one fused launch a call, replayed or
+    not; an output held across the next call unchanged; the host's ms a
+    call (the dispatch, no sync) and the card's (CUDA events), eager
+    against replay.  Then the same equality with net_bypass (rendered
+    people), at 2 scales of raw 720x1280 frames and, with a second card,
+    on cuda:1 while another card is the current device."""
     import numpy as np
     import torch
     from openpose_tpu_torch import synthetic
+    from openpose_tpu_torch.models import graph, zoo
     from openpose_tpu_torch.ops import paf
     from openpose_tpu_torch.parallel import graphs
     from openpose_tpu_torch.parallel.inference import PoseInference
+    from openpose_tpu_torch.params import PoseModel
     from openpose_tpu_torch.utils.profiler import TRACE
 
     rng = np.random.RandomState(3)
@@ -754,13 +759,29 @@ def graph_phase(device, model, net_hw=(368, 656), batches=(1, 8),
         try:
             got = [(call(), want) for _ in range(3)]
             got.append((call(other), want_other))
-            counters = TRACE.drain()["counters"]
+            drained = TRACE.drain()
         finally:
             TRACE.disable()
+        counters, spans = drained["counters"], drained["spans"]
         n_bodies = 1 if inference.net_bypass else 2
         assert counters == {"pose.graph.eager": n_bodies,
                             "pose.graph.captures": n_bodies,
                             "pose.graph.replays": 3 * n_bodies}, counters
+        if not inference.net_bypass:
+            # the eager call's and three replays' trunk and stages, once a
+            # scale, each a graph of its own in the replays (a collector's
+            # pause may open inside them too)
+            n_scales = len(inference.plan.scale_input_to_net)
+            parts = [s[0] for s in spans if s[3] is not None
+                     and spans[s[3]][0] == "pose.net"
+                     and not s[0].startswith("gc.")]
+            assert parts == [graph.TRUNK, graph.STAGES] * n_scales * 4, \
+                parts
+            cnn_graphs = [[stage for stage, _ in g.stages]
+                          for key, g in inference._graphs._entries.items()
+                          if key[0] == "_net"]
+            assert cnn_graphs == [[graph.TRUNK, graph.STAGES] * n_scales], \
+                cnn_graphs
         diff = max(float((g - w).abs().max()) for outs, wanted in got
                    for g, w in zip(outs, wanted, strict=True))
         held = call()
@@ -775,12 +796,16 @@ def graph_phase(device, model, net_hw=(368, 656), batches=(1, 8),
         assert diff == 0.0, f"{name}: replay differs from eager by {diff}"
         return diff, eager, call
 
-    for batch in batches:
-        inference = PoseInference(model, net_hw=net_hw, device=device)
+    coco = zoo.load_pose_model(PoseModel.COCO_18, seed=0, device=device)
+    nets = (("BODY_25", model), ("COCO_18", coco))
+    for (net_name, net_model), batch in itertools.product(nets, batches):
+        inference = PoseInference(net_model, net_hw=net_hw, device=device)
         frames = torch.from_numpy(scene_frames(rng, batch, net_hw)).to(device)
         other = torch.from_numpy(scene_frames(rng, batch, net_hw)).to(device)
-        diff, eager, call = check(f"batch {batch}", inference, frames, other)
-        per_call = launches_per_call(f"graphs, batch {batch}", call)
+        diff, eager, call = check(f"{net_name} batch {batch}", inference,
+                                  frames, other)
+        per_call = launches_per_call(f"graphs, {net_name} batch {batch}",
+                                     call)
         assert per_call == {"paf_scores_fused": 1,
                             "sample_bicubic_scales": 0}, per_call
         res = {"max_abs_diff": diff, "launches_per_call": per_call}
@@ -794,9 +819,10 @@ def graph_phase(device, model, net_hw=(368, 656), batches=(1, 8),
             _sync(device)
             res[name] = {"host_ms_per_call": host,
                          "event_ms_per_call": timed(fn, 2, iters, device)}
-        log(f"graphs, batch {batch}: eager {res['eager']}, replay "
-            f"{res['replay']} (host: the dispatch; event: the card's pace)")
-        out[f"batch_{batch}"] = res
+        log(f"graphs, {net_name} batch {batch}: eager {res['eager']}, "
+            f"replay {res['replay']} (host: the dispatch; event: the "
+            "card's pace)")
+        out[f"{net_name.lower()}_batch_{batch}"] = res
 
     info = model.info
     pairs, map_idx = paf.pair_tables(info)
@@ -817,7 +843,6 @@ def graph_phase(device, model, net_hw=(368, 656), batches=(1, 8),
         # graphs of a card that is not the current device; the fused
         # kernel's launcher makes its card current, so each call first
         # makes the phase's card current again
-        from openpose_tpu_torch.models import zoo
         card, current = torch.device("cuda", 1), device.index or 0
         assert current != 1, "the check wants cuda:1 not current"
         inference = PoseInference(zoo.load_pose_model(seed=0, device=card),

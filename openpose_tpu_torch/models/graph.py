@@ -28,15 +28,21 @@ topology files) runs as an `nn.Module` over a dict of activations:
 * Caffe pooling uses ceil-mode output sizes with -inf padding at the bottom
   and right, written out explicitly (PyTorch's ceil_mode drops a last window
   that starts in the padding; Caffe's output size keeps it).
+* A net is its trunk (the VGG layers up to the features every CPM stage
+  reads, `trunk_end`) and its CPM stages.  Given a `stage` callable
+  (`parallel/graphs.py`), `forward` runs the two parts inside
+  `stage(TRUNK)` and `stage(STAGES)`: the tracer's spans when eager, one
+  CUDA graph each when captured.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import json
 import pathlib
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -49,6 +55,9 @@ from openpose_tpu_torch.models.caffe_proto import LayerSpec, NetSpec
 Params = Dict[str, Dict[str, torch.Tensor]]
 
 _SPEC_DIR = pathlib.Path(__file__).resolve().parent / "specs"
+
+# the spans (and graph stages) of a forward's two parts
+TRUNK, STAGES = "pose.net.trunk", "pose.net.stages"
 
 
 @functools.lru_cache(maxsize=None)
@@ -162,6 +171,34 @@ def count_flops(spec: NetSpec, hw: Tuple[int, int], in_channels: int = 3
     return flops
 
 
+def trunk_end(spec: NetSpec) -> int:
+    """The number of layers in the net's trunk: those up to the last that
+    writes the features every CPM stage reads, the blob most Concat
+    layers read (`conv4_4_CPM` in the body nets, `conv5_3_CPM` in the face
+    and hand nets)."""
+    reads = collections.Counter(b for layer in spec.layers
+                                if layer.type == "Concat"
+                                for b in layer.bottoms)
+    if not reads:
+        raise ValueError(f"net {spec.name!r} has no CPM stages to split off")
+    features = reads.most_common(1)[0][0]
+    return 1 + max(i for i, layer in enumerate(spec.layers)
+                   if features in layer.tops)
+
+
+def split_flops(spec: NetSpec, hw: Tuple[int, int], in_channels: int = 3
+                ) -> Tuple[int, int]:
+    """(trunk, CPM stages) FLOPs of one image at input (H, W), split
+    where `forward` splits the net."""
+    flops = count_flops(spec, hw, in_channels)
+    trunk = sum(flops[layer.name] for layer in spec.layers[:trunk_end(spec)])
+    return trunk, sum(flops.values()) - trunk
+
+
+def _no_stage(name: str):
+    return contextlib.nullcontext()
+
+
 @contextlib.contextmanager
 def full_f32_convs():
     """float32 convolutions without TF32 inside the block, forward and
@@ -220,19 +257,40 @@ class PoseNet(nn.Module):
         this net shows in it."""
         return PoseNet(self.spec, self.params())
 
-    def forward(self, image: torch.Tensor,
-                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        """image [N, H, W, C_in] (BGR, normalized) -> [N, H/8, W/8, C] f32."""
+    def forward(self, image: Union[torch.Tensor, Callable[[], torch.Tensor]],
+                compute_dtype: torch.dtype = torch.float32,
+                stage: Optional[Callable] = None) -> torch.Tensor:
+        """image [N, H, W, C_in] (BGR, normalized) -> [N, H/8, W/8, C] f32.
+
+        stage: `GraphCache`'s stage callable (`parallel/graphs.py`); given,
+        the trunk's layers run inside `stage(TRUNK)` and the CPM stages'
+        inside `stage(STAGES)`.  image may be a function that makes the
+        input; it is called first thing in the trunk's stage, so that the
+        input's device work joins the trunk's graph."""
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, "
                              f"got {compute_dtype}")
         with full_f32_convs():
-            return self._run(image, compute_dtype)
+            return self._run(image, compute_dtype, stage)
 
-    def _run(self, image: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        # NHWC memory seen as NCHW: a channels-last tensor
-        acts = {self.spec.input: image.permute(0, 3, 1, 2).to(dtype)}
-        for layer in self.spec.layers:
+    def _run(self, image, dtype: torch.dtype, stage) -> torch.Tensor:
+        layers = self.spec.layers
+        end = len(layers) if stage is None else trunk_end(self.spec)
+        stage = stage or _no_stage
+        with stage(TRUNK):
+            if callable(image):
+                image = image()
+            # NHWC memory seen as NCHW: a channels-last tensor
+            acts = {self.spec.input: image.permute(0, 3, 1, 2).to(dtype)}
+            self._layers(acts, layers[:end], dtype)
+        with stage(STAGES):
+            self._layers(acts, layers[end:], dtype)
+            return acts[self.spec.output].permute(0, 2, 3, 1).to(
+                torch.float32)
+
+    def _layers(self, acts: Dict[str, torch.Tensor], layers,
+                dtype: torch.dtype) -> None:
+        for layer in layers:
             x = acts[layer.bottoms[0]]
             if layer.type == "Convolution":
                 w = self.param(layer.name, "w").to(dtype)
@@ -255,5 +313,4 @@ class PoseNet(nn.Module):
                 raise ValueError(f"unsupported layer type: {layer.type}")
             for top in layer.tops:
                 acts[top] = out
-        return acts[self.spec.output].permute(0, 2, 3, 1).to(torch.float32)
 

@@ -3,7 +3,7 @@
 A body (`PoseInference._net`, `_decode`) is written once as
 ``body(inputs, stage) -> outputs``, its device work inside ``with
 stage(name)`` blocks.  Called eagerly, `stage` opens the tracer's span
-`name` (none for None).  `GraphCache` keeps, per key (the body and the
+`name`.  `GraphCache` keeps, per key (the body and the
 inputs' shapes and dtypes), that body's graphs:
 
 * the first call with a key runs eagerly; it is the warm-up that builds
@@ -44,16 +44,15 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from openpose_tpu_torch.ops import paf_cuda
-from openpose_tpu_torch.utils.profiler import NO_SPAN, TRACE
+from openpose_tpu_torch.utils.profiler import TRACE
 
 # the hand kernels' wrappers, whose launch counters a replay passes by
 COUNTED = (paf_cuda.paf_scores_fused, paf_cuda.sample_bicubic_scales)
 
 
 def eager_stage(name):
-    """The stage of an eager call: the tracer's span `name`, none for
-    None."""
-    return NO_SPAN if name is None else TRACE.span(name)
+    """The stage of an eager call: the tracer's span `name`."""
+    return TRACE.span(name)
 
 
 def _tensors(obj):

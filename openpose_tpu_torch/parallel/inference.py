@@ -24,17 +24,19 @@ On a card, `PoseInference` replays its CNN and its decode as CUDA graphs
 net is on this rank (a ``model`` dimension of 1) and no capture is under
 way; elsewhere, and on the first call of a shape, it runs eagerly.
 
-Spans (`utils/profiler.py::TRACE`, off unless turned on): `pose.net`,
-`pose.decode` (with `pose.decode.merge`, `.nms`, `.paf`), `pose.fetch.wait`
-(`fetch_end`: the host blocked on the device), `pose.assemble`,
-`topdown.fetch`; counters `pose.graph.captures`, `.replays` and `.eager`
-(once per call of `net_outputs` or `decode`), `topdown.crops_computed`
-(slots sent through the net) and `topdown.crops_active` (slots with a rect
-to crop).
+Spans (`utils/profiler.py::TRACE`, off unless turned on): `pose.net`
+(with `pose.net.trunk` and `pose.net.stages` once a scale: the CNN's two
+parts, `models/graph.py::PoseNet`), `pose.decode` (with
+`pose.decode.merge`, `.nms`, `.paf`), `pose.fetch.wait` (`fetch_end`: the
+host blocked on the device), `pose.assemble`, `topdown.fetch`; counters
+`pose.graph.captures`, `.replays` and `.eager` (once per call of
+`net_outputs` or `decode`), `topdown.crops_computed` (slots sent through
+the net) and `topdown.crops_active` (slots with a rect to crop).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -192,27 +194,36 @@ class PoseInference:
             return self._graphs.run(self._net, [x], self._graphable())
 
     def _net(self, inputs, stage) -> List[torch.Tensor]:
-        with stage(None):
-            # uint8 frames go to the device as they are and become float
-            # there
-            x = inputs[0].to(self.device, non_blocking=True) \
-                .to(torch.float32)
-            net_h, net_w = self.net_hw
-            scales = self.plan.scale_input_to_net
-            sources = []
-            for (w_i, h_i), s_i in zip(self.plan.net_input_sizes, scales):
-                if self.frame_hw is not None:
-                    # each scale resamples the frame
-                    net_in = resize.resize_fixed_aspect(x, s_i, (h_i, w_i))
-                elif (w_i, h_i) == (net_w, net_h):
-                    net_in = x
-                else:
-                    # derived from the scale-0 canvas (s_0 == 1 here)
-                    net_in = resize.resize_fixed_aspect(x, s_i / scales[0],
-                                                        (h_i, w_i))
-                sources.append(self.net(resize.normalize_vgg(net_in),
-                                        self.compute_dtype))
-            return sources
+        # each scale's trunk and CPM stages run in `stage`s of their own
+        # (the net's `TRUNK` and `STAGES`).  A scale's input is made first
+        # thing in its trunk's stage (the upload and cast in the first
+        # scale's): a stage of its own would be one more graph launch
+        x = None
+        net_h, net_w = self.net_hw
+        scales = self.plan.scale_input_to_net
+
+        def net_input(w_i, h_i, s_i):
+            nonlocal x
+            if x is None:
+                # uint8 frames go to the device as they are and become
+                # float there
+                x = inputs[0].to(self.device, non_blocking=True) \
+                    .to(torch.float32)
+            if self.frame_hw is not None:
+                # each scale resamples the frame
+                net_in = resize.resize_fixed_aspect(x, s_i, (h_i, w_i))
+            elif (w_i, h_i) == (net_w, net_h):
+                net_in = x
+            else:
+                # derived from the scale-0 canvas (s_0 == 1 here)
+                net_in = resize.resize_fixed_aspect(x, s_i / scales[0],
+                                                    (h_i, w_i))
+            return resize.normalize_vgg(net_in)
+
+        return [self.net(functools.partial(net_input, w_i, h_i, s_i),
+                         self.compute_dtype, stage)
+                for (w_i, h_i), s_i in zip(self.plan.net_input_sizes,
+                                           scales)]
 
     @torch.inference_mode()
     def decode(self, sources: Sequence[torch.Tensor]

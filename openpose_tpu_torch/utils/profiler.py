@@ -12,13 +12,13 @@ those of the card in use (`utils/benchmark.py`'s datasheet table).
 `TRACE` is the port's span and counter store: off unless `TRACE.enable`
 (or `--profile_speed` on the CLI's batched path, through `SpanReport`)
 turns it on.  The inference layers open spans at their boundaries
-(`pose.net`, `pose.decode` and its `merge`, `nms` and `paf`,
-`pose.fetch.wait`, `pose.assemble`, `wholebody.body`/`face`/`hand`,
-`topdown.fetch`) and count the top-down crops (`topdown.crops_computed`,
-`topdown.crops_active`); the garbage collector's pauses come in as
-`gc.<generation>` spans, and `Profiler.timer_end`'s intervals as spans of
-their keys.  `TRACE.drain()` hands everything over as plain lists and
-dicts.
+(`pose.net` and its `trunk` and `stages`, `pose.decode` and its `merge`,
+`nms` and `paf`, `pose.fetch.wait`, `pose.assemble`,
+`wholebody.body`/`face`/`hand`, `topdown.fetch`) and count the top-down
+crops (`topdown.crops_computed`, `topdown.crops_active`); the garbage
+collector's pauses come in as `gc.<generation>` spans, and
+`Profiler.timer_end`'s intervals as spans of their keys.
+`TRACE.drain()` hands everything over as plain lists and dicts.
 """
 
 from __future__ import annotations

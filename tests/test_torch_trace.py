@@ -135,6 +135,13 @@ def test_outputs_bit_equal_with_tracing_on_and_off(scene, what):
         np.testing.assert_array_equal(a, b)
 
 
+def _net_parts(parent, step):
+    """The CNN's trunk and CPM stages inside its `pose.net` span, once at
+    the one scale."""
+    return [("pose.net.trunk", parent, step),
+            ("pose.net.stages", parent, step)]
+
+
 def _tree(spans):
     """(name, parent's name, step) of each span, gc pauses left out."""
     return [(s[0], None if s[3] is None else spans[s[3]][0], s[4])
@@ -147,7 +154,8 @@ def test_pose_spans_once_a_call_with_parent_and_step(scene):
     pose_step(scene)
     got = TRACE.drain()
     assert _tree(got["spans"]) == [
-        ("pose.net", None, step), ("pose.decode", None, step),
+        ("pose.net", None, step), *_net_parts("pose.net", step),
+        ("pose.decode", None, step),
         ("pose.decode.merge", "pose.decode", step),
         ("pose.decode.nms", "pose.decode", step),
         ("pose.decode.paf", "pose.decode", step),
@@ -163,7 +171,9 @@ def test_whole_body_spans_and_crop_counters(scene):
     whole_step(scene)
     got = TRACE.drain()
     assert _tree(got["spans"]) == [
-        ("pose.net", None, step), ("wholebody.body", None, step),
+        ("pose.net", None, step), *_net_parts("pose.net", step),
+        ("wholebody.body", None, step),
+        # the body's net_bypass call runs no CNN, so it has no parts
         ("pose.net", "wholebody.body", step),
         ("pose.decode", "wholebody.body", step),
         ("pose.decode.merge", "pose.decode", step),
