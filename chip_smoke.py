@@ -121,12 +121,18 @@ with a non-zero exit when it fails:
    every part) and the sampler on the 4-scale row's inputs.
 
 The kernel phase also holds the fused kernel to its plain version at the
-refinement's shape (8 crops of 368x368, thresholds 0.02 and 0.01).
+refinement's shape (8 crops of 368x368, thresholds 0.02 and 0.01), and
+ends with the epilogue phase: the convolutions' epilogue kernel bit-equal
+to its plain version on every convolution output of BODY_25 and COCO_18
+at 368x656 and FACE_70 and HAND_21 at 368x368, batch 1 and 8, and on edge
+values; every convolution of a bf16 serving forward fused; its time beside
+its byte bound and the plain sequence's.
 
 `python3 chip_smoke.py --capped-trace` runs the people-capped call alone,
 timed and traced (to set two trees side by side on one card).
 `python3 chip_smoke.py --graphs` runs the graph phase alone (about 40 s
 with the build).
+`python3 chip_smoke.py --epilogue` runs the epilogue phase alone.
 `python3 chip_smoke.py --mesh-scaling` runs 1, 2 and 4 ranks, one per
 card, up to the cards there are: serving frames/s and train img/s of each
 world against one rank.
@@ -163,6 +169,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 # H100_SXM: the H100 SXM5's datasheet rates, the yardstick of the CNN's
 # FLOP utilisation (bf16 on tensor cores, float32 without TF32) and of the
@@ -219,18 +226,16 @@ def paf_scene(rng, counts, max_peaks, n, hw_low, n_channels, near_pair=False):
 
 def reset_launches():
     """Set every kernel wrapper's launch count to 0."""
-    from openpose_tpu_torch.ops import paf_cuda
-    paf_cuda.paf_scores_fused.launches = 0
-    paf_cuda.sample_bicubic_scales.launches = 0
+    from openpose_tpu_torch.parallel import graphs
+    for wrapper in graphs.COUNTED:
+        wrapper.launches = 0
 
 
 def read_launches(path, *must_launch):
     """Every wrapper's launch count since `reset_launches`; each wrapper in
     must_launch must have launched on this path."""
-    from openpose_tpu_torch.ops import paf_cuda
-    counts = {w.__name__: w.launches
-              for w in (paf_cuda.paf_scores_fused,
-                        paf_cuda.sample_bicubic_scales)}
+    from openpose_tpu_torch.parallel import graphs
+    counts = {w.__name__: w.launches for w in graphs.COUNTED}
     log(f"{path} kernel launches: {counts}")
     for wrapper in must_launch:
         assert counts[wrapper.__name__] > 0, \
@@ -240,14 +245,11 @@ def read_launches(path, *must_launch):
 
 def launches_per_call(path, call):
     """Every wrapper's launch count over one call of a path."""
-    from openpose_tpu_torch.ops import paf_cuda
-    before = (paf_cuda.paf_scores_fused.launches,
-              paf_cuda.sample_bicubic_scales.launches)
+    from openpose_tpu_torch.parallel import graphs
+    before = [w.launches for w in graphs.COUNTED]
     call()
-    counts = {"paf_scores_fused": paf_cuda.paf_scores_fused.launches
-              - before[0],
-              "sample_bicubic_scales":
-                  paf_cuda.sample_bicubic_scales.launches - before[1]}
+    counts = {w.__name__: w.launches - n
+              for w, n in zip(graphs.COUNTED, before)}
     log(f"{path}: kernel launches per call {counts}")
     return counts
 
@@ -451,7 +453,313 @@ def kernel_phase(device, info, full_shape=(8, 46, 82, 127)):
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound": full_bound, "full_shape_mismatches": mismatches,
             "four_scales_ms": ms4, "four_scales_plain_ms": plain_ms4,
-            "four_scales_bound": bound4, "refinement": refinement}
+            "four_scales_bound": bound4, "refinement": refinement,
+            "epilogue": epilogue_phase(device)}
+
+
+def _bits(t):
+    """A bfloat16 tensor's bits, in logical order (NaNs compare too)."""
+    import torch
+    return t.contiguous().view(torch.int16)
+
+
+def _edge_epilogue_inputs(rng, device, channels):
+    """A [2, C, 5, 7] bfloat16 conv output in channels-last memory, its
+    float32 bias and slope, with negatives, zeros of both signs, the
+    largest finite values, infinities, NaN and tiny values among them."""
+    import numpy as np
+    import torch
+    special = np.array([0.0, -0.0, 1e-40, -1e-40, 3.3e38, -3.3e38, np.inf,
+                        -np.inf, np.nan, 1e30, -1e30, 1.0, -1.0],
+                       np.float32)
+    x = rng.standard_normal(2 * channels * 35).astype(np.float32) * 3
+    x[:special.size] = special
+    bias = rng.standard_normal(channels).astype(np.float32)
+    bias[:3] = (-0.0, 0.0, 1e38)
+    slope = rng.uniform(-0.5, 1.5, channels).astype(np.float32)
+    return (torch.from_numpy(x.reshape(2, channels, 5, 7)).to(
+        device, torch.bfloat16).contiguous(memory_format=torch.channels_last),
+        torch.from_numpy(bias).to(device), torch.from_numpy(slope).to(device))
+
+
+def _epilogue_net(name, device, seed, trainable=False):
+    """A bundled net with seeded weights and random biases and slopes, so
+    that every bias and slope carries signal."""
+    import torch
+    from openpose_tpu_torch.models import graph
+    spec = graph.load_spec(name)
+    gen = torch.Generator().manual_seed(seed)
+    params = graph.init_params(spec, gen)
+    for sub in params.values():
+        for key in ("b", "slope"):
+            if key in sub:
+                sub[key] = torch.rand(sub[key].shape, generator=gen) - 0.3
+    return graph.PoseNet(spec, params, trainable=trainable).to(device)
+
+
+def _graph_ms(fn, iters, device):
+    """Mean device ms of fn over iters calls captured in one CUDA graph and
+    replayed (`timed` over the replays)."""
+    import torch
+    fn()                                  # builds and loads the library
+    torch.cuda.synchronize(device)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    return timed(g.replay, 2, 5, device) / iters
+
+
+def _max_abs_err(got, want):
+    """The largest |got - want| over the values whose bits differ (0.0
+    where none do; inf where a NaN or an infinity differs)."""
+    import torch
+    diff = _bits(got) != _bits(want)
+    if not bool(diff.any()):
+        return 0.0
+    err = (got.float() - want.float()).abs()[diff]
+    return float(err.nan_to_num(nan=float("inf")).max())
+
+
+# The convolutions' epilogue kernel is held to its plain version on every
+# convolution output of these nets at these sizes, batch 1 and 8, and timed
+# at the main path's shapes: conv1_2 (the trunk's largest) and a BODY_25
+# CPM stage's 96-channel PReLU convolution, batch 8 and 1.
+EPILOGUE_NETS = (("body_25", (368, 656)), ("coco_18", (368, 656)),
+                 ("face_70", (368, 368)), ("hand_21", (368, 368)))
+EPILOGUE_TIMED = (("conv1_2", "relu", (8, 64, 368, 656)),
+                  ("Mconv1_stage0_L2_0", "prelu", (8, 96, 46, 82)),
+                  ("conv1_2", "relu", (1, 64, 368, 656)),
+                  ("Mconv1_stage0_L2_0", "prelu", (1, 96, 46, 82)))
+EPILOGUE_CHANNELS = (19, 20, 22, 26, 28, 38, 52, 71, 96, 128, 512)
+# a timed row cycles through copies of its tensor that together hold this
+# many times the card's L2, so that each call reads and writes device
+# memory, as its byte bound assumes
+EPILOGUE_COLD_L2S = 4
+
+
+def epilogue_phase(device, nets=EPILOGUE_NETS, batches=(1, 8),
+                   timed_shapes=EPILOGUE_TIMED, serve_shape=(8, 368, 656),
+                   train_shape=(2, 368, 368), iters=50):
+    """The convolutions' epilogue kernel (`ops/conv_epilogue.py`,
+    `kernels/conv_epilogue.cu`) against its plain version on the card,
+    bit for bit: (a) on every convolution output of each net's bf16
+    forward (the plain version first, then the kernel over the same
+    output); (b) on edge values (both zeros, the largest values,
+    infinities, NaN) for each activation at the output convolutions' and
+    the stages' channel counts; (c) a serving forward of BODY_25 and
+    COCO_18 at serve_shape (N, H, W): every convolution counts
+    `cnn.epilogue.fused`, one launch each, and the net's output equals the
+    forward with the plain epilogue; (d) the kernel's time beside its byte
+    bound, the plain sequence's time and device operations, at the timed
+    shapes, launched from the host and replayed in a CUDA graph, each call
+    on a copy of the tensor that is no longer in the L2; (e) a trainer's
+    BODY_25 in bf16 at train_shape under autograd: the kernel's forward
+    and every gradient against the plain epilogue's (cuDNN set
+    deterministic for both), one launch a convolution."""
+    import numpy as np
+    import torch
+    from openpose_tpu_torch.models import graph
+    from openpose_tpu_torch.ops import conv_epilogue
+    from openpose_tpu_torch.utils.profiler import TRACE
+
+    kernel = conv_epilogue.bias_act
+    checked = {}             # (net, N, C, H, W, activation): mismatches
+    errs = [0.0]
+
+    def held(x, bias, kind, slope=None):
+        want = conv_epilogue.plain(x, bias, kind, slope)
+        got = kernel(x, bias, kind, slope)
+        assert got.data_ptr() == x.data_ptr(), "the kernel wrote elsewhere"
+        key = (net_name, *x.shape, kind)
+        checked[key] = checked.get(key, 0) + int(
+            (_bits(got) != _bits(want)).sum())
+        errs.append(_max_abs_err(got, want))
+        return got
+
+    rng = np.random.RandomState(11)
+    out = {}
+    with torch.inference_mode():
+        # the nets call `held` in the wrapper's place; the wrapper itself
+        # and its launch count stay as they are
+        graph.conv_epilogue = types.SimpleNamespace(
+            **{**vars(conv_epilogue), "bias_act": held})
+        try:
+            for (net_name, hw), batch in itertools.product(nets, batches):
+                net = _epilogue_net(net_name, device, seed=3)
+                image = torch.from_numpy(rng.uniform(
+                    -0.5, 0.5, (batch, *hw, 3)).astype(np.float32)).to(device)
+                net(image, torch.bfloat16)
+                del net
+        finally:
+            graph.conv_epilogue = conv_epilogue
+        bad = {k: v for k, v in checked.items() if v}
+        log(f"epilogue (a): {len(checked)} convolution output shapes of "
+            f"{[n for n, _ in nets]} at batch {list(batches)}, "
+            f"mismatched values {bad or 0}, max |diff| {max(errs)}")
+        out["path_shapes"] = len(checked)
+        out["path_mismatches"] = sum(bad.values())
+        out["path_max_abs_err"] = max(errs)
+
+        edge_bad = {}
+        for kind, c in itertools.product(conv_epilogue.KINDS,
+                                         EPILOGUE_CHANNELS):
+            x, bias, slope = _edge_epilogue_inputs(rng, device, c)
+            want = conv_epilogue.plain(x, bias, kind, slope)
+            got = kernel(x.clone(memory_format=torch.channels_last), bias,
+                         kind, slope)
+            diff = _bits(got) != _bits(want)
+            if bool(diff.any()):
+                i = diff.nonzero()[:4].tolist()
+                edge_bad[f"{kind} C={c}"] = [
+                    (float(x[tuple(j)]), float(bias[j[1]]),
+                     int(_bits(got)[tuple(j)]), int(_bits(want)[tuple(j)]))
+                    for j in i]
+        log(f"epilogue (b): edge values, {len(conv_epilogue.KINDS)} "
+            f"activations x channels {list(EPILOGUE_CHANNELS)}: "
+            f"mismatches (x, bias, kernel bits, plain bits) {edge_bad or 0}")
+        out["edge_mismatches"] = edge_bad
+
+        engaged = {}
+        for net_name in ("body_25", "coco_18"):
+            net = _epilogue_net(net_name, device, seed=4)
+            image = torch.from_numpy(rng.uniform(
+                -0.5, 0.5, (*serve_shape, 3)).astype(np.float32)).to(device)
+            before = kernel.launches
+            TRACE.drain()
+            TRACE.enable()
+            try:
+                fused = net(image, torch.bfloat16)
+                counters = TRACE.drain()["counters"]
+            finally:
+                TRACE.disable()
+            launches = kernel.launches - before
+            fuses = conv_epilogue.fuses
+            conv_epilogue.fuses = lambda x: False
+            try:
+                plain = net(image, torch.bfloat16)
+            finally:
+                conv_epilogue.fuses = fuses
+            n_convs = len(net.epilogues)
+            engaged[net_name] = {
+                "counters": counters, "launches": launches,
+                "convolutions": n_convs,
+                "output_equal": bool(torch.equal(fused, plain))}
+            del net
+        log(f"epilogue (c): bf16 serving forwards at {serve_shape}: "
+            f"{engaged}")
+        out["engaged"] = engaged
+
+        rows = []
+        l2_bytes = torch.cuda.get_device_properties(device).L2_cache_size
+        for name, kind, shape in timed_shapes:
+            n = int(np.prod(shape))
+            copies = -(-EPILOGUE_COLD_L2S * l2_bytes // (2 * n))
+            xs = [torch.randn(shape, device=device).to(torch.bfloat16)
+                  .contiguous(memory_format=torch.channels_last)
+                  for _ in range(copies)]
+            bias = torch.rand(shape[1], device=device) - 0.3
+            slope = torch.rand(shape[1], device=device)
+            calls = itertools.count()
+
+            def on_kernel():
+                return kernel(xs[next(calls) % copies], bias, kind, slope)
+
+            def on_plain():
+                return conv_epilogue.plain(xs[next(calls) % copies], bias,
+                                           kind, slope)
+            # every copy once in each timed loop and each captured graph
+            reps = max(iters, copies)
+            bound_ms, bound_by = roofline_ms(4 * n, 3 * n, H100_SXM)
+            ms = timed(on_kernel, 5, reps, device)
+            kernel_ops = device_busy(on_kernel, 10)
+            plain_ops = device_busy(on_plain, 10)
+            assert kernel_ops and kernel_ops["device_launches_per_call"] > 0, \
+                f"the profiler saw no kernel of {name}'s epilogue"
+            rows.append({
+                "layer": name, "activation": kind, "shape": list(shape),
+                "copies": copies, "ms": ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+                "tb_per_s": 4 * n / ms / 1e9,
+                "plain_ms": timed(on_plain, 3, reps, device),
+                # as the main path runs them, replayed in a CUDA graph: the
+                # device's pace without the host's launches in between
+                "graph_ms": _graph_ms(on_kernel, reps, device),
+                "plain_graph_ms": _graph_ms(on_plain, reps, device),
+                "kernel_device_ops": kernel_ops["device_launches_per_call"],
+                "plain_device_ops": plain_ops["device_launches_per_call"]})
+            rows[-1]["graph_share_of_bound"] = bound_ms / rows[-1]["graph_ms"]
+            log(f"epilogue (d): {json.dumps(rows[-1])}")
+            del xs
+        out["timed"] = rows
+
+    trained = _epilogue_training(device, train_shape, rng)
+    out["train"] = trained
+    log(f"epilogue (e): a trainer's BODY_25 at {train_shape}, bf16, "
+        f"forward and backward: {json.dumps(trained)}")
+    assert not bad, f"the epilogue kernel differs on the path: {bad}"
+    assert not edge_bad, f"the epilogue kernel differs on edges: {edge_bad}"
+    for net_name, e in engaged.items():
+        assert e["counters"] == {"cnn.epilogue.fused": e["convolutions"]}, e
+        assert e["launches"] == e["convolutions"], e
+        assert e["output_equal"], f"{net_name}: fused output differs"
+    n_convs = trained["convolutions"]
+    assert trained["mismatched"] == [], trained
+    assert trained["launches"] == n_convs, trained
+    assert trained["counters"] == {
+        "plain": {graph.EPILOGUE_PLAIN: n_convs},
+        "kernel": {graph.EPILOGUE_FUSED: n_convs}}, trained
+    return out
+
+
+def _epilogue_training(device, shape, rng):
+    """A trainable BODY_25 in bf16 at shape (N, H, W), forward and the
+    backward of a sum of squares, once with the plain epilogue and once
+    with the kernel (`_BiasAct`), on the same weights and image: the
+    output and each gradient that differ, the largest difference, the
+    counters and the kernel's launches of each run."""
+    import numpy as np
+    import torch
+    from openpose_tpu_torch.ops import conv_epilogue
+    from openpose_tpu_torch.utils.profiler import TRACE
+
+    kernel = conv_epilogue.bias_act
+    image = torch.from_numpy(rng.uniform(
+        -0.5, 0.5, (*shape, 3)).astype(np.float32)).to(device)
+    runs = {}
+    fuses = conv_epilogue.fuses
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True):
+        for name in ("plain", "kernel"):
+            net = _epilogue_net("body_25", device, seed=6, trainable=True)
+            if name == "plain":
+                conv_epilogue.fuses = lambda x: False
+            before = kernel.launches
+            TRACE.drain()
+            TRACE.enable()
+            try:
+                y = net(image, torch.bfloat16)
+                (y.float() ** 2).sum().backward()
+                counters = TRACE.drain()["counters"]
+            finally:
+                TRACE.disable()
+                conv_epilogue.fuses = fuses
+            runs[name] = {"output": y.detach(), "counters": counters,
+                          "launches": kernel.launches - before,
+                          "grads": {k: p.grad for k, p in
+                                    net.weights.items()}}
+            n_convs = len(net.epilogues)
+            del net
+    got, want = runs["kernel"], runs["plain"]
+    pairs = [("output", got["output"], want["output"])] + [
+        (k, got["grads"][k], want["grads"][k]) for k in want["grads"]]
+    return {"convolutions": n_convs, "tensors": len(pairs),
+            "mismatched": [k for k, a, b in pairs if not torch.equal(a, b)],
+            "max_abs_err": max(float((a - b).abs().max())
+                               for _, a, b in pairs),
+            "counters": {"plain": want["counters"],
+                         "kernel": got["counters"]},
+            "launches": got["launches"], "plain_launches": want["launches"]}
 
 
 def refinement_kernel_cases(device, info, both, rng, n=8, k=127,
@@ -704,7 +1012,9 @@ def main_path_phase(device, model, frame_hw=(720, 1280), net_h=368, batch=8,
     log(f"batch-1 bf16 latency: device {lat_device} ms; with fetch "
         f"{lat_fetch} ms; with fetch + assembly median {np.median(lat)} ms, "
         f"min {np.min(lat)} ms")
-    res["launches"] = read_launches("main path", paf_cuda.paf_scores_fused)
+    from openpose_tpu_torch.ops import conv_epilogue
+    res["launches"] = read_launches("main path", paf_cuda.paf_scores_fused,
+                                    conv_epilogue.bias_act)
     res["breakdown"] = stage_breakdown(model, batch_frames, device, iters)
     res["cnn_cpu_vs_gpu"] = cnn_cpu_check(model, device)
     return res
@@ -716,7 +1026,8 @@ def graph_phase(device, model, net_hw=(368, 656), batches=(1, 8),
     benchmark cells' shapes (batch 1 and 8, 368x656, 127 peaks), for
     BODY_25 and COCO_18: every replayed call bit-equal to the eager bodies
     on the CNN outputs, peaks and scores; the counters (one eager call and
-    one capture a body, then replays); the CNN's graphs, a trunk and a
+    one capture a body, then replays; every convolution's epilogue kernel
+    counted in the eager call and the capture); the CNN's graphs, a trunk and a
     stages graph a scale, replayed inside their spans `pose.net.trunk` and
     `pose.net.stages` in `pose.net`; one fused launch a call, replayed or
     not; an output held across the next call unchanged; the host's ms a
@@ -764,14 +1075,20 @@ def graph_phase(device, model, net_hw=(368, 656), batches=(1, 8),
             TRACE.disable()
         counters, spans = drained["counters"], drained["spans"]
         n_bodies = 1 if inference.net_bypass else 2
-        assert counters == {"pose.graph.eager": n_bodies,
-                            "pose.graph.captures": n_bodies,
-                            "pose.graph.replays": 3 * n_bodies}, counters
+        want_counters = {"pose.graph.eager": n_bodies,
+                         "pose.graph.captures": n_bodies,
+                         "pose.graph.replays": 3 * n_bodies}
+        n_scales = len(inference.plan.scale_input_to_net)
+        if not inference.net_bypass:
+            # every convolution's epilogue kernel, once a scale in the
+            # eager call and once in the capture; the replays count none
+            want_counters[graph.EPILOGUE_FUSED] = \
+                2 * n_scales * len(inference.net.epilogues)
+        assert counters == want_counters, counters
         if not inference.net_bypass:
             # the eager call's and three replays' trunk and stages, once a
             # scale, each a graph of its own in the replays (a collector's
             # pause may open inside them too)
-            n_scales = len(inference.plan.scale_input_to_net)
             parts = [s[0] for s in spans if s[3] is not None
                      and spans[s[3]][0] == "pose.net"
                      and not s[0].startswith("gc.")]
@@ -806,8 +1123,12 @@ def graph_phase(device, model, net_hw=(368, 656), batches=(1, 8),
                                   frames, other)
         per_call = launches_per_call(f"graphs, {net_name} batch {batch}",
                                      call)
-        assert per_call == {"paf_scores_fused": 1,
-                            "sample_bicubic_scales": 0}, per_call
+        # a replay adds what its capture launched: the fused scorer once,
+        # the epilogue once a convolution and scale
+        n_convs = len(inference.plan.scale_input_to_net) * len(
+            inference.net.epilogues)
+        assert per_call == {"paf_scores_fused": 1, "sample_bicubic_scales": 0,
+                            "bias_act": n_convs}, per_call
         res = {"max_abs_diff": diff, "launches_per_call": per_call}
         for name, fn in (("eager", eager), ("replay", call)):
             fn()
@@ -1853,7 +2174,8 @@ def gradient_check(device, image_size=(96, 128), batch=2, seeds=(0,)):
                         loss = train.loss_fn(net, x_dev, t_dev, dtype)
                         loss.backward()
                 else:
-                    loss = torch.mean((net._run(x_dev, dtype) - t_dev) ** 2)
+                    loss = torch.mean(
+                        (net._run(x_dev, dtype, None) - t_dev) ** 2)
                     loss.backward()
                 _sync(dev)
             grads = {name: p.grad.double().cpu()
@@ -2054,7 +2376,7 @@ def train_phase(device, image_size=(368, 368), batch=8, steps=30,
     import torch
     from openpose_tpu_torch import accuracy, train_loop
     from openpose_tpu_torch.models import checkpoint, graph, zoo
-    from openpose_tpu_torch.ops import paf_cuda
+    from openpose_tpu_torch.ops import conv_epilogue, paf_cuda
     from openpose_tpu_torch.params import POSE_MODEL_INFO, PoseModel
 
     info = POSE_MODEL_INFO[PoseModel.BODY_25]
@@ -2142,8 +2464,10 @@ def train_phase(device, image_size=(368, 368), batch=8, steps=30,
     # observed on the card at 400 steps: 0.99 -> 0.0084 at step 50 -> 0.0033
     assert losses[t2ap_steps - 1] < 0.05 * losses[0], losses
     assert metrics["n_gt"] > 0
-    # the evaluation's frames went through the fused kernel, one each
-    out["launches"] = read_launches("train path", paf_cuda.paf_scores_fused)
+    # the evaluation's frames went through the fused kernel, one each, and
+    # the bf16 trainer's convolutions through the epilogue kernel
+    out["launches"] = read_launches("train path", paf_cuda.paf_scores_fused,
+                                    conv_epilogue.bias_act)
     # and at that shape the kernel is held to its plain version
     # the checkpoint stays for `cli_phase`, which serves it and removes it
     out["checkpoint"] = str(ckpt_dir / "t2ap"
@@ -3642,7 +3966,7 @@ def bench_phase(device, model, rehearse=False):
     import math
     import torch
     from openpose_tpu_torch import bench, entry
-    from openpose_tpu_torch.ops import paf, paf_cuda, resize
+    from openpose_tpu_torch.ops import conv_epilogue, paf, paf_cuda, resize
     t_phase = time.perf_counter()
     shapes = bench.REHEARSAL if rehearse else bench.PUBLISHED
     out = {}
@@ -3665,8 +3989,9 @@ def bench_phase(device, model, rehearse=False):
     assert a["shapes"] == [[1, 25, 128, 3], [1, 26, 127, 127]], a
     assert bool(torch.isfinite(peaks).all() & torch.isfinite(scores).all())
     if device.type == "cuda":
-        assert a["launches_per_call"] == {"paf_scores_fused": 1,
-                                          "sample_bicubic_scales": 0}, a
+        assert a["launches_per_call"] == {
+            "paf_scores_fused": 1, "sample_bicubic_scales": 0,
+            "bias_act": len(net.epilogues)}, a
 
     # (b) the benchmark's rows
     row, chained = bench.main((["--cpu"] if device.type == "cpu" else [])
@@ -3680,7 +4005,8 @@ def bench_phase(device, model, rehearse=False):
     if not rehearse:
         assert row["synthetic_ap"] >= 0.95, row
         assert row["face_rmse_px"] < 2 and row["hand_rmse_px"] < 2, row
-    out["launches"] = read_launches("bench path", paf_cuda.paf_scores_fused,
+    out["launches"] = read_launches("bench path", conv_epilogue.bias_act,
+                                    paf_cuda.paf_scores_fused,
                                     paf_cuda.sample_bicubic_scales)
 
     # the kernels on the phase's own tensors, after the counts are read:
@@ -3777,6 +4103,9 @@ def main() -> int:
     if sys.argv[1:] == ["--graphs"]:
         log(json.dumps({"graphs": graph_phase(device, model)}))
         return 0
+    if sys.argv[1:] == ["--epilogue"]:
+        log(json.dumps({"epilogue": epilogue_phase(device)}))
+        return 0
     report["kernel"] = kernel_phase(device, model.info)
     report["sampler"] = sampler_phase(device)
     report["main_path"] = main_path_phase(device, model)
@@ -3805,6 +4134,7 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     kernel, sampler = report["kernel"], report["sampler"]
+    epilogue = kernel["epilogue"]
     source = "openpose_tpu_torch/kernels/paf_score.cu"
     # library_ms is null for both: no one PyTorch call computes either
     # function (`F.grid_sample(mode="bicubic")` uses the cubic coefficient
@@ -3837,7 +4167,25 @@ def main() -> int:
             "max_abs_err"]["sample_bicubic_scales"]),
         "ms": sampler["ms"], "plain_ms": sampler["plain_ms"],
         "bound_ms": sampler["bound"]["bound_ms"],
-        "bound_by": sampler["bound"]["bound_by"], "library_ms": None}]}))
+        "bound_by": sampler["bound"]["bound_by"], "library_ms": None}, {
+        # no TPU kernel: XLA fuses the bias and activation into the
+        # convolution; timed at conv1_2's 8 x 64 x 368 x 656 output; the
+        # epilogue phase holds it to its plain version on the nets'
+        # convolution outputs and a trainer's forward and gradients
+        "name": "conv_epilogue_kernel", "route": "cuda",
+        "source": "openpose_tpu_torch/kernels/conv_epilogue.cu",
+        "replaces": None,
+        "launches": sum(report[phase]["launches"]["bias_act"]
+                        for phase in ("main_path", "people_capped",
+                                      "whole_body", "wrapper", "runner",
+                                      "accuracy", "train", "cli", "tools",
+                                      "mesh", "threed", "timing", "bench")),
+        "max_abs_err": max(epilogue["path_max_abs_err"],
+                           epilogue["train"]["max_abs_err"]),
+        "ms": epilogue["timed"][0]["ms"],
+        "plain_ms": epilogue["timed"][0]["plain_ms"],
+        "bound_ms": epilogue["timed"][0]["bound_ms"],
+        "bound_by": epilogue["timed"][0]["bound_by"], "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

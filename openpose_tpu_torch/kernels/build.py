@@ -20,12 +20,12 @@ import threading
 from typing import Optional
 
 KERNEL_DIR = pathlib.Path(__file__).resolve().parent
-SOURCES = (KERNEL_DIR / "paf_score.cu",)
+SOURCES = (KERNEL_DIR / "paf_score.cu", KERNEL_DIR / "conv_epilogue.cu")
 BUILD_DIR = KERNEL_DIR.parent.parent / "build" / "openpose_tpu_torch"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # every multiply and add rounds on its own, as in the plain PyTorch
-    # versions the kernels are held to (see paf_score.cu)
+    # versions the kernels are held to (see paf_score.cu, conv_epilogue.cu)
     "-fmad=false",
     "--ptxas-options=-v", "-shared", "-Xcompiler", "-fPIC")
 
@@ -97,6 +97,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32, i32, i32,                            # n P S
         i64, i32, vp]                             # smem limit, device, stream
     lib.sample_bicubic_launch.restype = i32
+    lib.conv_epilogue_launch.argtypes = [
+        vp, vp, vp, vp,                           # x bias slope pre
+        i64, i32, i32, i32,                       # pixels C act vec
+        i32, vp]                                  # device, stream
+    lib.conv_epilogue_launch.restype = i32
     lib.paf_score_error_string.argtypes = [i32]
     lib.paf_score_error_string.restype = ctypes.c_char_p
     return lib

@@ -15,6 +15,15 @@ topology files) runs as an `nn.Module` over a dict of activations:
   it the bias does not help (on CUDA it adds a bfloat16 bias after the
   convolution).  The extra rounding is within the drift that summation
   order alone causes (tests/test_torch_graph.py, BODY_25 in bfloat16).
+  The bias add, its rounding and the activation that directly follows the
+  convolution in place (`epilogue_plan`) are one step,
+  `ops/conv_epilogue.py::bias_act`: on a card one hand-written kernel a
+  convolution, bit-equal to the PyTorch operations it replaces, which run
+  on the CPU; under a trainer's autograd the kernel's backward is those
+  operations' own, so the gradients are bit-equal too.  Each convolution
+  counts `cnn.epilogue.fused` or
+  `cnn.epilogue.plain` in the tracer when its layer runs on the host (an
+  eager call or a CUDA graph's capture; a replay counts nothing).
   float32 convolutions run with cuDNN's TF32 switched off, set as a context
   around the forward pass, not as a global side effect.
 * Serving nets hold parameters that take no gradient.  A trainer builds
@@ -51,6 +60,8 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 
 from openpose_tpu_torch.models.caffe_proto import LayerSpec, NetSpec
+from openpose_tpu_torch.ops import conv_epilogue
+from openpose_tpu_torch.utils.profiler import TRACE
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -58,6 +69,8 @@ _SPEC_DIR = pathlib.Path(__file__).resolve().parent / "specs"
 
 # the spans (and graph stages) of a forward's two parts
 TRUNK, STAGES = "pose.net.trunk", "pose.net.stages"
+# the counters of the convolutions' epilogues: the kernel, or PyTorch's ops
+EPILOGUE_FUSED, EPILOGUE_PLAIN = "cnn.epilogue.fused", "cnn.epilogue.plain"
 
 
 @functools.lru_cache(maxsize=None)
@@ -195,6 +208,25 @@ def split_flops(spec: NetSpec, hw: Tuple[int, int], in_channels: int = 3
     return trunk, sum(flops.values()) - trunk
 
 
+def epilogue_plan(spec: NetSpec) -> Dict[str, Tuple[str, Optional[str]]]:
+    """{convolution: (activation, its layer)} for every convolution of the
+    spec: ("relu" | "prelu", name) where a ReLU or PReLU layer directly
+    follows the convolution and rewrites its one top in place, so that no
+    other layer sees the blob before the activation; else ("none", None),
+    and any activation runs as its own layer."""
+    plan: Dict[str, Tuple[str, Optional[str]]] = {}
+    layers = spec.layers
+    for conv, after in zip(layers, [*layers[1:], None]):
+        if conv.type != "Convolution":
+            continue
+        folds = (after is not None and after.type in ("ReLU", "PReLU")
+                 and len(conv.tops) == 1 and after.bottoms == conv.tops
+                 and after.tops == conv.tops)
+        plan[conv.name] = ((after.type.lower(), after.name) if folds
+                           else ("none", None))
+    return plan
+
+
 def _no_stage(name: str):
     return contextlib.nullcontext()
 
@@ -219,6 +251,10 @@ class PoseNet(nn.Module):
                  trainable: bool = False):
         super().__init__()
         self.spec = spec
+        self.epilogues = epilogue_plan(spec)
+        # the activation layers that a forward in another dtype than float32
+        # (bf16; float64 in a gradient check) runs inside their convolution
+        self._folded = {act for _, act in self.epilogues.values() if act}
         self.weights = nn.ParameterDict()
         for layer in spec.layers:
             if layer.type not in ("Convolution", "PReLU"):
@@ -293,18 +329,13 @@ class PoseNet(nn.Module):
         for layer in layers:
             x = acts[layer.bottoms[0]]
             if layer.type == "Convolution":
-                w = self.param(layer.name, "w").to(dtype)
-                b = self.param(layer.name, "b")
-                if dtype == torch.float32:
-                    out = F.conv2d(x, w, b, layer.stride, layer.pad)
-                else:
-                    out = F.conv2d(x, w, None, layer.stride, layer.pad)
-                    out = (out + b[:, None, None]).to(dtype)
-            elif layer.type == "ReLU":
-                out = F.relu(x)
-            elif layer.type == "PReLU":
-                slope = self.param(layer.name, "slope").to(dtype)
-                out = torch.where(x >= 0, x, x * slope[:, None, None])
+                out = self._conv(x, layer, dtype)
+            elif layer.type in ("ReLU", "PReLU"):
+                if dtype != torch.float32 and layer.name in self._folded:
+                    continue        # its convolution's epilogue applied it
+                out = conv_epilogue.activate(
+                    x, layer.type.lower(), self.param(layer.name, "slope")
+                    if layer.type == "PReLU" else None)
             elif layer.type == "Pooling":
                 out = _max_pool(x, layer)
             elif layer.type == "Concat":
@@ -314,3 +345,17 @@ class PoseNet(nn.Module):
             for top in layer.tops:
                 acts[top] = out
 
+    def _conv(self, x: torch.Tensor, layer: LayerSpec,
+              dtype: torch.dtype) -> torch.Tensor:
+        w = self.param(layer.name, "w").to(dtype)
+        b = self.param(layer.name, "b")
+        if dtype == torch.float32:
+            TRACE.count(EPILOGUE_PLAIN)
+            return F.conv2d(x, w, b, layer.stride, layer.pad)
+        out = F.conv2d(x, w, None, layer.stride, layer.pad)
+        kind, act = self.epilogues[layer.name]
+        TRACE.count(EPILOGUE_FUSED if conv_epilogue.fuses(out)
+                    else EPILOGUE_PLAIN)
+        return conv_epilogue.bias_act(
+            out, b, kind, self.param(act, "slope") if kind == "prelu"
+            else None)

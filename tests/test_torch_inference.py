@@ -37,7 +37,7 @@ from openpose_tpu.params import PoseModel, default_connect_params
 from openpose_tpu.parallel import mesh as mesh_lib
 from openpose_tpu.parallel.inference import ShardedPoseInference
 from openpose_tpu.pose.extractor import PoseExtractor as JaxPoseExtractor
-from openpose_tpu_torch.models import checkpoint, zoo
+from openpose_tpu_torch.models import checkpoint, graph, zoo
 from openpose_tpu_torch.ops import paf_cuda
 from openpose_tpu_torch.parallel import graphs
 from openpose_tpu_torch.parallel.inference import PoseInference
@@ -284,7 +284,8 @@ def test_graph_gate_keeps_cpu_calls_eager(mpi, tracer):
     """On the CPU every call runs the eager bodies, as before graphs: no key
     is kept, the outputs equal the bodies' bit for bit, and
     `pose.graph.eager` counts each call of net_outputs and decode; a
-    net_bypass net_outputs (an upload and a cast) counts nothing."""
+    net_bypass net_outputs (an upload and a cast) counts nothing.  Every
+    convolution of each scale's CNN counts its plain epilogue."""
     _, port_model = mpi
     rng = np.random.RandomState(6)
     frames = rng.randint(0, 255, (2, 64, 80, 3)).astype(np.uint8)
@@ -299,7 +300,10 @@ def test_graph_gate_keeps_cpu_calls_eager(mpi, tracer):
         assert len(got) == len(want)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert not inf._graphs._entries
-    assert tracer.drain()["counters"] == {"pose.graph.eager": 6}
+    n_convs = len(graph.epilogue_plan(port_model.spec))
+    assert tracer.drain()["counters"] == {
+        "pose.graph.eager": 6,
+        graph.EPILOGUE_PLAIN: 3 * MPI_KW["scale_number"] * n_convs}
 
     bypass = PoseInference(port_model, net_hw=(64, 80), net_bypass=True,
                            device="cpu")
@@ -478,7 +482,8 @@ def test_graph_output_held_across_the_next_call(card, card_body25):
 
 def test_graph_counters_on_card(card, card_body25, tracer):
     """N calls of one shape: one eager call, one capture, N - 1 replays,
-    for net_outputs and decode each."""
+    for net_outputs and decode each; the eager call and the capture run
+    every convolution's epilogue kernel on the host, the replays nothing."""
     kw, (inputs, _) = _card_case("batch1", np.random.RandomState(9))
     inf = PoseInference(card_body25, device=card, **kw)
     n = 5
@@ -486,7 +491,8 @@ def test_graph_counters_on_card(card, card_body25, tracer):
         _outputs(inf, inputs)
     assert tracer.drain()["counters"] == {
         "pose.graph.eager": 2, "pose.graph.captures": 2,
-        "pose.graph.replays": 2 * (n - 1)}
+        "pose.graph.replays": 2 * (n - 1),
+        graph.EPILOGUE_FUSED: 2 * len(card_body25.net.epilogues)}
 
 
 def test_graph_replay_counts_fused_launches(card, card_body25):

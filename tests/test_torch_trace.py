@@ -22,7 +22,7 @@ import torch
 
 from openpose_tpu_torch import cli, synthetic
 from openpose_tpu_torch.io import native_loader
-from openpose_tpu_torch.models import zoo
+from openpose_tpu_torch.models import graph, zoo
 from openpose_tpu_torch.ops import paf
 from openpose_tpu_torch.parallel.inference import (
     PoseInference, TopDownInference)
@@ -142,6 +142,11 @@ def _net_parts(parent, step):
             ("pose.net.stages", parent, step)]
 
 
+def _convs(*inferences):
+    """The convolutions of one forward of each inference object's net."""
+    return sum(len(inf.net.epilogues) for inf in inferences)
+
+
 def _tree(spans):
     """(name, parent's name, step) of each span, gc pauses left out."""
     return [(s[0], None if s[3] is None else spans[s[3]][0], s[4])
@@ -161,8 +166,10 @@ def test_pose_spans_once_a_call_with_parent_and_step(scene):
         ("pose.decode.paf", "pose.decode", step),
         ("pose.fetch.wait", None, step)] + [
         ("pose.assemble", None, step)] * BATCH
-    # the CNN's call and the decode's, both eager: the CPU replays no graph
-    assert got["counters"] == {"pose.graph.eager": 2}
+    # the CNN's call and the decode's, both eager: the CPU replays no graph;
+    # every convolution of the CNN takes the plain epilogue
+    assert got["counters"] == {"pose.graph.eager": 2,
+                               graph.EPILOGUE_PLAIN: _convs(scene["cnn"])}
 
 
 def test_whole_body_spans_and_crop_counters(scene):
@@ -189,10 +196,14 @@ def test_whole_body_spans_and_crop_counters(scene):
     # every frame computes the leading slots up to the most people
     most, total = max(PEOPLE), sum(PEOPLE)
     # and the body's CNN and decode are one eager call each (its
-    # net_bypass upload counts nothing)
+    # net_bypass upload counts nothing); the body CNN, the face net and
+    # the hand net (both hands in one call) each run every convolution's
+    # plain epilogue once
+    whole = scene["whole"]
     assert got["counters"] == {
         "topdown.crops_computed": BATCH * most * 3,
-        "topdown.crops_active": total * 3, "pose.graph.eager": 2}
+        "topdown.crops_active": total * 3, "pose.graph.eager": 2,
+        graph.EPILOGUE_PLAIN: _convs(scene["cnn"], whole.face, whole.hand)}
 
 
 @pytest.mark.parametrize("what", sorted(STEPS))
@@ -237,7 +248,8 @@ def test_crop_counters_equal_slots_sent_and_active_rows(scene, rows):
         assert counters == {}
     else:
         assert counters == {"topdown.crops_computed": BATCH * k,
-                            "topdown.crops_active": int(active.sum())}
+                            "topdown.crops_active": int(active.sum()),
+                            graph.EPILOGUE_PLAIN: _convs(td)}
 
 
 def test_ranges_nest_in_the_profilers_chrome_trace(scene, tmp_path):
@@ -384,12 +396,19 @@ def test_profile_speed_prints_span_averages_on_the_batched_path(
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("[profiler]")]
     line = re.compile(r"\[profiler\] ([\w.]+): \d+\.\d\d ms avg over (\d+)$")
-    counter = re.compile(r"\[profiler\] pose\.graph\.eager: (\d+) over \d+ "
-                         r"frames$")
-    eager = [int(counter.match(ln).group(1)) for ln in lines
-             if counter.match(ln)]
+    counter = re.compile(r"\[profiler\] ([\w.]+): (\d+) over \d+ frames$")
+    counts = [counter.match(ln).groups() for ln in lines
+              if counter.match(ln)]
+    assert {name for name, _ in counts} == {
+        "pose.graph.eager", graph.EPILOGUE_PLAIN}, lines
+    eager = [int(n) for name, n in counts if name == "pose.graph.eager"]
     # the CPU runs every call eagerly: two batches, a CNN and a decode each
     assert eager and eager[-1] == 4, lines
+    # and every convolution of the two batches' BODY_25 CNN runs its
+    # epilogue's plain version
+    plain = [int(n) for name, n in counts if name == graph.EPILOGUE_PLAIN]
+    n_convs = len(graph.epilogue_plan(graph.load_spec("body_25")))
+    assert plain and plain[-1] == 2 * n_convs, lines
     parsed = [line.match(ln) for ln in lines if not counter.match(ln)]
     assert all(parsed), lines
     # after frame 2, then at the end: every span of the batched path twice
