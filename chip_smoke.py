@@ -22,7 +22,8 @@ with a non-zero exit when it fails:
    shape is timed and held against the bound;
 5. main path: BODY_25 (seeded random weights) through `PoseExtractor` on
    720x1280 frames at net resolution 368x656 in float32 and bfloat16, and
-   through batch-8 `PoseInference`, timed; the PAF kernel's launch count in
+   through batch-8 `PoseInference` (the cells of `perfbench/` time these
+   paths); the PAF kernel's launch count in
    this phase must be > 0; a per-stage breakdown (with the sampled PAF
    backend timed against the fused one at K = 127) and a CPU-vs-GPU check
    of the CNN follow; then the graph phase: `PoseInference`'s CUDA graphs
@@ -111,18 +112,14 @@ with a non-zero exit when it fails:
    `scripts/profile_train_step` beside the train phase's figure, and
    `scripts/analyze_scaling` on a one-rank NCCL world (no collective in
    inference).
-18. bench (after the timing phase): the flagship entry point
-   `openpose_tpu_torch/entry.py::entry()` (one fused launch, held to the
-   plain version) and `python -m openpose_tpu_torch.bench` in this
-   process: every row the card measures present and not withheld by the
-   roofline guard, the closed loops at the accuracy phase's gates; the
-   fused kernel held to its plain version on the bench's three post
-   inputs (8 people, a crowd of 32, noise that fills all 127 peaks of
-   every part) and the sampler on the 4-scale row's inputs.
 
 The kernel phase also holds the fused kernel to its plain version at the
-refinement's shape (8 crops of 368x368, thresholds 0.02 and 0.01), and
-ends with the epilogue phase: the convolutions' epilogue kernel bit-equal
+refinement's shape (8 crops of 368x368, thresholds 0.02 and 0.01), runs
+the flagship entry point `openpose_tpu_torch/entry.py::entry()` at its
+defaults (one fused launch, held to the plain version), holds the fused
+kernel to its plain version on a crowd of 32 people a frame and on noise
+that fills all 127 peaks of every part (batch 8, 46x82 maps), and ends
+with the epilogue phase: the convolutions' epilogue kernel bit-equal
 to its plain version on every convolution output of BODY_25 and COCO_18
 at 368x656 and FACE_70 and HAND_21 at 368x368, batch 1 and 8, and on edge
 values; every convolution of a bf16 serving forward fused; its time beside
@@ -150,9 +147,9 @@ card's memory rate and its float operations (counted from this run's peak
 counts and line lengths) over the card's float32 rate (the H100 SXM5's
 datasheet rates, `utils/benchmark.py`).  The line before the
 last is the kernel summary, the last line {"ok": true, "device": {...}}.  Details go to build/chip_smoke/chip_smoke.json.
-The default run took 684 s on one H100 80GB HBM3 at 700 W, the build and
-every phase included, the bench phase 34.9 s of it (753.4 s before the
-bench phase was added, on a slower host, the timing phase 48.7 s of it;
+The default run took 858 s on one H100 80GB HBM3 at 700 W, the build and
+every phase included, with a bench phase since removed (684 s before
+the graph and epilogue phases were added, the bench phase 34.9 s of it;
 635.8 s before the timing phase was added; the train phase's 1500
 steps 156.6 s, the mesh phase 38.3 s, the tools phase 18.3 s).  `--train-to-ap` takes 175 s; `--mesh-scaling` took 234 s
 on four of them.
@@ -319,7 +316,8 @@ def sampler_bound(lows, my):
             "bytes": n_bytes, "operations": n_ops}
 
 
-def kernel_phase(device, info, full_shape=(8, 46, 82, 127)):
+def kernel_phase(device, info, full_shape=(8, 46, 82, 127),
+                 entry_hw=(368, 656)):
     """Kernel vs plain version on the device; returns the summary dict."""
     import numpy as np
     import torch
@@ -450,11 +448,97 @@ def kernel_phase(device, info, full_shape=(8, 46, 82, 127)):
     refinement = refinement_kernel_cases(device, info, both, rng,
                                          n=min(n, 8), k=k)
     max_err = max(max_err, *(c["max_abs_err"] for c in refinement.values()))
+    at_entry = entry_check(device, entry_hw)
+    on_post = post_input_cases(device, info, (hs * 8, ws * 8), n)
+    max_err = max(max_err, at_entry["kernel"]["max_abs_err"],
+                  at_entry["fn_max_abs_err"],
+                  *(c["max_abs_err"] for c in on_post.values()))
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound": full_bound, "full_shape_mismatches": mismatches,
             "four_scales_ms": ms4, "four_scales_plain_ms": plain_ms4,
             "four_scales_bound": bound4, "refinement": refinement,
+            "entry": at_entry, "post_inputs": on_post,
             "epilogue": epilogue_phase(device)}
+
+
+def entry_check(device, net_hw):
+    """`entry.py::entry()` (its defaults: 368x656, bf16): `fn(*example_args)`
+    after one warm call gives [1, 25, 128, 3] peaks and [1, 26, 127, 127]
+    scores with one fused launch, the peaks bit-equal to the stages run by
+    hand and the scores to the plain version on the same tensors."""
+    import torch
+    from openpose_tpu_torch import entry
+    from openpose_tpu_torch.ops import nms, paf, resize
+    from openpose_tpu_torch.params import POSE_MODEL_INFO, PoseModel
+    fn, (net, image) = entry.entry(device=device, net_hw=net_hw)
+    fn(net, image)              # warm: cuDNN's algorithm search
+    result = []
+    out = {"launches_per_call": launches_per_call(
+        "entry() fn", lambda: result.append(fn(net, image)))}
+    peaks, scores = result[0]
+    out["shapes"] = [list(peaks.shape), list(scores.shape)]
+    assert out["shapes"] == [[1, 25, 128, 3], [1, 26, 127, 127]], out
+    assert bool(torch.isfinite(peaks).all() & torch.isfinite(scores).all())
+    if device.type == "cuda":
+        assert out["launches_per_call"] == {
+            "paf_scores_fused": 1, "sample_bicubic_scales": 0,
+            "bias_act": len(net.epilogues)}, out
+    pairs, map_idx = (torch.from_numpy(t).to(device) for t in
+                      paf.pair_tables(POSE_MODEL_INFO[PoseModel.BODY_25]))
+    with torch.inference_mode():
+        src = net(resize.normalize_vgg(image), torch.bfloat16)
+        by_hand = nms.nms(resize.resize_bicubic(src[..., :25], net_hw),
+                          0.05, 127)
+        args = ([src], [1.0], net_hw, peaks, pairs, map_idx, 0.05, 0.95,
+                0.05)
+        out["fn_max_abs_err"] = float(
+            (scores - paf.paf_scores_multiscale_reference(*args)).abs()
+            .max())
+    assert torch.equal(by_hand, peaks), "entry() fn's stages differ"
+    # after the counts are read: these launches only compare
+    out["kernel"] = fused_against_plain(args, device)
+    log("entry(): " + json.dumps(out))
+    assert out["kernel"]["mismatches"] == 0 \
+        and out["fn_max_abs_err"] <= KERNEL_TOL, out
+    return out
+
+
+def post_input_cases(device, info, net_hw, batch):
+    """The fused kernel against its plain version past the rendered
+    8-person scenes the cells feed: a crowd of 32 `random_people` a frame,
+    and uniform noise in [-1, 1), whose every part fills the 127-peak
+    budget at 368x656; each merged and NMS'd at 0.05 as the decode does."""
+    import numpy as np
+    import torch
+    from openpose_tpu_torch import synthetic, train
+    from openpose_tpu_torch.ops import nms, paf, resize
+    pairs, map_idx = (torch.from_numpy(t).to(device)
+                      for t in paf.pair_tables(info))
+    crowd = np.stack([synthetic.random_people(
+        np.random.RandomState(100 + b), 32, net_hw,
+        min_spacing=30.0)[:, :info.num_parts] for b in range(batch)])
+    noise = np.random.RandomState(3).uniform(
+        -1, 1, (batch, net_hw[0] // 8, net_hw[1] // 8,
+                info.heatmap_channels)).astype(np.float32)
+    sources = {
+        "crowd_32": train.make_targets(
+            torch.from_numpy(crowd).to(device), pairs, map_idx, net_hw,
+            info.num_parts, info.heatmap_channels),
+        "noise": torch.from_numpy(noise).to(device)}
+    out = {}
+    for name, src in sources.items():
+        with torch.inference_mode():
+            peaks = nms.nms(resize.resize_bicubic(src[..., :info.num_parts],
+                                                  net_hw), 0.05, 127)
+        args = ([src], [1.0], net_hw, peaks, pairs, map_idx, 0.05, 0.95,
+                0.05)
+        out[name] = k = fused_against_plain(args, device, iters=5)
+        log(f"fused kernel on the {name} input {list(src.shape)}: "
+            f"tol={KERNEL_TOL} " + json.dumps(k))
+        assert k["mismatches"] == 0 and k["max_abs_err"] <= KERNEL_TOL, k
+    if tuple(net_hw) == (368, 656):
+        assert out["noise"]["peaks_per_part_mean"] == 127.0, out["noise"]
+    return out
 
 
 def _bits(t):
@@ -925,7 +1009,8 @@ def scene_frames(rng, count, frame_hw, n_people=3):
 
 def main_path_phase(device, model, frame_hw=(720, 1280), net_h=368, batch=8,
                     iters=6):
-    """PoseExtractor (f32 and bf16) and batched PoseInference on BODY_25."""
+    """PoseExtractor (f32 and bf16) and batched PoseInference on BODY_25;
+    the cells of `perfbench/` time the serving paths."""
     import numpy as np
     import torch
     from openpose_tpu_torch.ops import paf_cuda
@@ -962,56 +1047,14 @@ def main_path_phase(device, model, frame_hw=(720, 1280), net_h=368, batch=8,
         assert bool(torch.isfinite(peaks).all() & torch.isfinite(scores).all())
         res["launches_per_call"] = launches_per_call(
             f"main path, batch {batch}", lambda: inference(images))
-        ms_device = timed(lambda: inference(images), 2, iters, device)
-        ms_fetch = host_ms(lambda: inference.fetch(*inference(images)), iters)
         pk, sc = inference.fetch(*inference(images))
         people = [len(inference.assemble(pk[b], sc[b])[0])
                   for b in range(batch)]
-        ms_assembly = host_ms(lambda: [inference.assemble(pk[b], sc[b])
-                                       for b in range(batch)], 3)
-
-        def end_to_end():
-            pk, sc = inference.fetch(*inference(images))
-            return [inference.assemble(pk[b], sc[b]) for b in range(batch)]
-        ms_e2e = host_ms(end_to_end, iters)
-        if name == "bf16" and device.type == "cuda":
-            res["trace_bf16_end_to_end"] = trace = device_busy(end_to_end, 2)
-            log(f"trace, batch-8 bf16 end to end: {json.dumps(trace)}")
-        res[f"inference_{name}"] = {
-            "batch": batch, "ms_per_batch_device": ms_device,
-            "fps_device": batch * 1e3 / ms_device,
-            "ms_per_batch_with_fetch": ms_fetch,
-            "ms_assembly_per_batch": ms_assembly,
-            "ms_per_batch_end_to_end": ms_e2e,
-            "fps_end_to_end": batch * 1e3 / ms_e2e,
-            "people_per_frame": people}
+        res[f"inference_{name}"] = {"batch": batch,
+                                    "people_per_frame": people}
         log(f"inference {name} batch {batch} at {net_h}x{net_w}: "
-            f"device {ms_device} ms/batch = {batch * 1e3 / ms_device} f/s; "
-            f"with fetch {ms_fetch} ms/batch; host assembly {ms_assembly} "
-            f"ms/batch; end to end {ms_e2e} ms/batch = "
-            f"{batch * 1e3 / ms_e2e} f/s; people per frame={people}")
+            f"people per frame={people}")
 
-    one = torch.from_numpy(batch_frames[:1]).to(device)
-    inference1 = PoseInference(model, net_hw=(net_h, net_w), device=device)
-    lat_device = timed(lambda: inference1(one), 3, 20, device)
-    lat_fetch = host_ms(lambda: inference1.fetch(*inference1(one)), 20)
-
-    def frame_latency():
-        pk, sc = inference1.fetch(*inference1(one))
-        inference1.assemble(pk[0], sc[0])
-    for _ in range(3):
-        frame_latency()
-    lat = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        frame_latency()
-        lat.append((time.perf_counter() - t0) * 1e3)
-    res["batch1_latency_ms"] = {"median": float(np.median(lat)),
-                                "min": float(np.min(lat)),
-                                "device": lat_device, "with_fetch": lat_fetch}
-    log(f"batch-1 bf16 latency: device {lat_device} ms; with fetch "
-        f"{lat_fetch} ms; with fetch + assembly median {np.median(lat)} ms, "
-        f"min {np.min(lat)} ms")
     from openpose_tpu_torch.ops import conv_epilogue
     res["launches"] = read_launches("main path", paf_cuda.paf_scores_fused,
                                     conv_epilogue.bias_act)
@@ -1253,10 +1296,11 @@ def sampler_on_path(inference, sources, peaks, device):
     against its bound, and times the gather of the planes
     (`paf.sampler_args`) that the path pays before it."""
     from openpose_tpu_torch.ops import paf, paf_cuda
-    geo = paf._line_geometry(peaks, inference.pairs, inference.net_hw)
+    dec = inference.decoder
+    geo = paf._line_geometry(peaks, dec.pairs_dev, inference.net_hw)
     make_args = lambda: paf.sampler_args(
         sources, inference.plan.scale_input_to_net, inference.net_hw, geo,
-        inference.map_idx)
+        dec.map_idx_dev)
     lows, my, mx, scales = make_args()
     pairs = [(paf_cuda.sample_bicubic_scales(lows, my, mx, scales),
               paf.sample_bicubic_scales_reference(lows, my, mx, scales))]
@@ -1351,13 +1395,13 @@ def people_capped_phase(device, model, batch=4, net_hw=(736, 1312),
 
     # the routing question at K = 16, on this path's own peaks
     inference, images = runs["presized"]
-    nms_thr, inter_thr, inter_min = inference.thresholds
+    dec, cp = inference.decoder, inference.decoder.connect
     with torch.inference_mode():
         sources = inference.net_outputs(images)
         peaks, scores = inference.decode(sources)
         args = (sources, inference.plan.scale_input_to_net, net_hw, peaks,
-                inference.pairs, inference.map_idx, inter_thr, inter_min,
-                nms_thr)
+                dec.pairs_dev, dec.map_idx_dev, cp.inter_threshold,
+                cp.inter_min_above_threshold, cp.nms_threshold)
         routing = {
             "sampled_ms": timed(lambda: paf.paf_scores_multiscale(*args), 2,
                                 10, device),
@@ -1378,8 +1422,8 @@ def people_capped_phase(device, model, batch=4, net_hw=(736, 1312),
         res["sampler_on_path"] = sampler_on_path(inference, sources, peaks,
                                                  device)
         # the forced fused kernel on this path's tensors, against its bound
-        routing["fused_bound"] = fused_bound(sources, peaks, inference.pairs,
-                                             inference.map_idx)
+        routing["fused_bound"] = fused_bound(sources, peaks, dec.pairs_dev,
+                                             dec.map_idx_dev)
         routing["fused_share_of_bound"] = \
             routing["fused_bound"]["bound_ms"] / routing["fused_ms"]
     res["routing_k16"] = routing
@@ -1467,17 +1511,18 @@ def whole_body_phase(device, pose_model, batch=4, frame_hw=(720, 1280),
         f"people per frame {out['body_people_per_frame']}")
 
     # the fused kernel alone on the body stage's own tensors
-    nms_thr, inter_thr, inter_min = wb.body.thresholds
+    dec, cp = wb.body.decoder, wb.body.decoder.connect
     with torch.inference_mode():
         sources = wb.body.net_outputs(frames)
         peaks, _ = wb.body.decode(sources)
         args = (sources, wb.body.plan.scale_input_to_net, net_hw, peaks,
-                wb.body.pairs, wb.body.map_idx, inter_thr, inter_min, nms_thr)
+                dec.pairs_dev, dec.map_idx_dev, cp.inter_threshold,
+                cp.inter_min_above_threshold, cp.nms_threshold)
         body_paf = {
             "ms": timed(lambda: paf_cuda.paf_scores_fused(*args), 3, 20,
                         device),
-            "bound": fused_bound(sources, peaks, wb.body.pairs,
-                                 wb.body.map_idx),
+            "bound": fused_bound(sources, peaks, dec.pairs_dev,
+                                 dec.map_idx_dev),
             "peaks_per_part_mean": float(peaks[:, :, 0, 0].mean())}
     body_paf["share_of_bound"] = body_paf["bound"]["bound_ms"] / body_paf["ms"]
     out["body_paf_kernel"] = body_paf
@@ -2031,16 +2076,17 @@ def accuracy_phase(device, model, n_images=64, net_hws=((368, 656), (176, 320)),
     inference = PoseInference(model, net_hw=net_hw, device=device,
                               net_bypass=True, compute_dtype=torch.float32)
     kp_dev = torch.from_numpy(kp).to(device)
+    dec, cp = inference.decoder, inference.decoder.connect
     render = lambda: train.make_targets(
-        kp_dev, inference.pairs, inference.map_idx, net_hw, info.num_parts,
+        kp_dev, dec.pairs_dev, dec.map_idx_dev, net_hw, info.num_parts,
         info.heatmap_channels)
     net_out = render()
-    nms_thr, inter_thr, inter_min = inference.thresholds
     with torch.inference_mode():
         peaks, _ = inference.decode([net_out])
     kernel = fused_against_plain(
-        ([net_out], [1.0], net_hw, peaks, inference.pairs, inference.map_idx,
-         inter_thr, inter_min, nms_thr), device)
+        ([net_out], [1.0], net_hw, peaks, dec.pairs_dev, dec.map_idx_dev,
+         cp.inter_threshold, cp.inter_min_above_threshold,
+         cp.nms_threshold), device)
     kernel["launches_per_batch"] = launches_per_call(
         "accuracy loop, one batch", lambda: inference(net_out))[
             "paf_scores_fused"]
@@ -3287,7 +3333,7 @@ def tools_phase(device, checkpoint, model, eval_images=16,
         assert np.array_equal(peaks[0].cpu().numpy(), pred09.peaks)
         kernel = fused_against_plain(
             (sources, plan.scale_input_to_net, (h, w), peaks,
-             extractor._pairs_dev, extractor._map_idx_dev,
+             extractor.decoder.pairs_dev, extractor.decoder.map_idx_dev,
              cp.inter_threshold, cp.inter_min_above_threshold,
              cp.nms_threshold), device)
         out["kernel_on_tutorial_09"] = kernel
@@ -3938,121 +3984,6 @@ def timing_phase(device, model, train_step_ms=None, rehearse=False):
     return out
 
 
-# the bench rows the card measures: each must be present and above 0.0
-# (0.0 is a row the roofline guard withheld, or a chain that measured
-# nothing)
-BENCH_CARD_RATES = ("value", "crowd32_fps", "worst_case_fps", "batch1_fps",
-                    "whole_body_fps", "whole_body_typical_fps",
-                    "multiscale4_fps")
-
-
-def bench_phase(device, model, rehearse=False):
-    """The flagship entry point and the benchmark of the port on the card
-    (`rehearse`: the bench at its tiny shapes, to try the phase on the
-    CPU):
-    (a) `entry()` at its defaults: `fn(*example_args)` after one warm
-        call, outputs [1, 25, 128, 3] and [1, 26, 127, 127], one fused
-        launch, its scores held to the plain version on the same tensors,
-        recomputed stage by stage (the peaks bit-equal to fn's);
-    (b) `python -m openpose_tpu_torch.bench` in this process (`bench.main`),
-        its JSON line logged: every row the card measures present and
-        not withheld (`BENCH_CARD_RATES` above 0.0), every number finite,
-        the closed loops at the accuracy phase's gates (AP 0.95, RMSE
-        2 px);
-    then, after the counts are read, the fused kernel against its plain
-    version on the bench's three post inputs (8 people, the crowd of 32,
-    the noise that fills every part's 127 peaks; batch 8 at 368x656) and
-    the sampler against its plain version on the 4-scale row's inputs."""
-    import math
-    import torch
-    from openpose_tpu_torch import bench, entry
-    from openpose_tpu_torch.ops import conv_epilogue, paf, paf_cuda, resize
-    t_phase = time.perf_counter()
-    shapes = bench.REHEARSAL if rehearse else bench.PUBLISHED
-    out = {}
-    reset_launches()
-
-    # (a) the flagship entry point
-    fn, (net, image) = entry.entry(device=device)
-    fn(net, image)              # warm: cuDNN's algorithm search
-    result = []
-    a = {"launches_per_call": launches_per_call(
-        "entry() fn", lambda: result.append(fn(net, image)))}
-    peaks, scores = result[0]
-    # the same stages by hand, for the kernel's check below
-    post = bench.Post(model.info, entry.NET_HW, device)
-    with torch.inference_mode():
-        entry_args = post.paf_args(net(resize.normalize_vgg(image),
-                                       torch.bfloat16))
-    assert torch.equal(entry_args[3], peaks), "entry() fn's stages differ"
-    a["shapes"] = [list(peaks.shape), list(scores.shape)]
-    assert a["shapes"] == [[1, 25, 128, 3], [1, 26, 127, 127]], a
-    assert bool(torch.isfinite(peaks).all() & torch.isfinite(scores).all())
-    if device.type == "cuda":
-        assert a["launches_per_call"] == {
-            "paf_scores_fused": 1, "sample_bicubic_scales": 0,
-            "bias_act": len(net.epilogues)}, a
-
-    # (b) the benchmark's rows
-    row, chained = bench.main((["--cpu"] if device.type == "cpu" else [])
-                              + (["--rehearse"] if rehearse else []))
-    log("bench row: " + json.dumps(row))
-    out["row"], out["chained"] = row, chained
-    bad = [k for k in BENCH_CARD_RATES if not row.get(k, 0.0) > 0.0]
-    assert not bad, f"bench rows missing or withheld: {bad}"
-    assert all(math.isfinite(v) for v in row.values()
-               if not isinstance(v, str)), row
-    if not rehearse:
-        assert row["synthetic_ap"] >= 0.95, row
-        assert row["face_rmse_px"] < 2 and row["hand_rmse_px"] < 2, row
-    out["launches"] = read_launches("bench path", conv_epilogue.bias_act,
-                                    paf_cuda.paf_scores_fused,
-                                    paf_cuda.sample_bicubic_scales)
-
-    # the kernels on the phase's own tensors, after the counts are read:
-    # these launches only compare
-    a["kernel"] = fused_against_plain(entry_args, device,
-                                      iters=2 if rehearse else 20)
-    a["fn_max_abs_err"] = float((scores - paf.paf_scores_multiscale_reference(
-        *entry_args)).abs().max())
-    a["seconds"] = time.perf_counter() - t_phase
-    out["entry"] = a
-    log("bench (a) entry(): " + json.dumps(a))
-    assert a["kernel"]["mismatches"] == 0 \
-        and a["fn_max_abs_err"] <= KERNEL_TOL, a
-
-    post = bench.Post(model.info, shapes.net_hw, device)
-    _, sources = bench.headline_inputs(model.info, device, shapes)
-    out["kernel_on_post_inputs"] = {}
-    for name, src in sources.items():
-        with torch.inference_mode():
-            args = post.paf_args(src)
-        k = fused_against_plain(args, device, iters=2 if rehearse else 5)
-        out["kernel_on_post_inputs"][name] = k
-        log(f"bench: fused kernel on the {name} post input "
-            f"{list(src.shape)}: tol={KERNEL_TOL} " + json.dumps(k))
-        assert k["mismatches"] == 0 and k["max_abs_err"] <= KERNEL_TOL, k
-    if not rehearse:
-        assert out["kernel_on_post_inputs"]["worst"][
-            "peaks_per_part_mean"] == 127.0
-    inference, frames = bench.multiscale_inputs(model, device, shapes)
-    with torch.inference_mode():
-        sources = inference.net_outputs(frames)
-        peaks, _ = inference.decode(sources)
-    out["sampler_on_multiscale4"] = sampler_on_path(inference, sources,
-                                                    peaks, device)
-    out["max_abs_err"] = {
-        "paf_scores_fused": max([a["kernel"]["max_abs_err"],
-                                 a["fn_max_abs_err"]]
-                                + [k["max_abs_err"] for k in
-                                   out["kernel_on_post_inputs"].values()]),
-        "sample_bicubic_scales": out["sampler_on_multiscale4"][
-            "max_abs_err"]}
-    out["seconds"] = time.perf_counter() - t_phase
-    log(f"bench phase: {out['seconds']:.1f} s")
-    return out
-
-
 def synthetic_frame(people, image_size, seed=7):
     """One scene of `people` drawn by the numpy renderer, its background
     from a fixed seed (so that views of one rig differ only by the
@@ -4129,7 +4060,6 @@ def main() -> int:
         report["threed"] = threed_phase(device)
     report["timing"] = timing_phase(
         device, model, report["train"]["f32"]["device_step_ms"])
-    report["bench"] = bench_phase(device, model)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -4146,25 +4076,22 @@ def main() -> int:
         "launches": sum(report[phase]["launches"]["paf_scores_fused"]
                         for phase in ("main_path", "whole_body", "wrapper",
                                       "runner", "accuracy", "train", "cli",
-                                      "tools", "mesh", "timing",
-                                      "bench")),
+                                      "tools", "mesh", "timing")),
         "max_abs_err": max(kernel["max_abs_err"], report["main_path"][
             "breakdown"]["paf_main_path_max_abs_err"], report["accuracy"][
             "kernel_on_loop_batch"]["max_abs_err"], report["train"][
             "kernel_on_trained_frame"]["max_abs_err"], report["tools"][
             "kernel_on_tutorial_09"]["max_abs_err"], report["timing"][
-            "speed_test"]["paf_max_abs_err"], report["bench"][
-            "max_abs_err"]["paf_scores_fused"]),
+            "speed_test"]["paf_max_abs_err"]),
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound"]["bound_ms"],
         "bound_by": kernel["bound"]["bound_by"], "library_ms": None}, {
         "name": "sample_bicubic_kernel", "route": "cuda", "source": source,
         "replaces": "openpose_tpu/ops/paf_pallas.py:335",
         "launches": sum(report[phase]["launches"]["sample_bicubic_scales"]
-                        for phase in ("people_capped", "mesh", "bench")),
+                        for phase in ("people_capped", "mesh")),
         "max_abs_err": max(sampler["max_abs_err"], report["people_capped"][
-            "sampler_on_path"]["max_abs_err"], report["bench"][
-            "max_abs_err"]["sample_bicubic_scales"]),
+            "sampler_on_path"]["max_abs_err"]),
         "ms": sampler["ms"], "plain_ms": sampler["plain_ms"],
         "bound_ms": sampler["bound"]["bound_ms"],
         "bound_by": sampler["bound"]["bound_by"], "library_ms": None}, {
@@ -4179,7 +4106,7 @@ def main() -> int:
                         for phase in ("main_path", "people_capped",
                                       "whole_body", "wrapper", "runner",
                                       "accuracy", "train", "cli", "tools",
-                                      "mesh", "threed", "timing", "bench")),
+                                      "mesh", "threed", "timing")),
         "max_abs_err": max(epilogue["path_max_abs_err"],
                            epilogue["train"]["max_abs_err"]),
         "ms": epilogue["timed"][0]["ms"],

@@ -424,10 +424,8 @@ def run_fast_path(args, device=None, mesh=None) -> int:
             nms_threshold=cp.nms_threshold,
             inter_threshold=cp.inter_threshold,
             inter_min_above_threshold=cp.inter_min_above_threshold,
-            compute_dtype=dtype, mesh=mesh)
-        # assembly with --maximize_positives' limits, as the reference's
-        # extractor would assemble
-        inference.connect = cp
+            compute_dtype=dtype, mesh=mesh,
+            maximize_positives=args.maximize_positives)
         runner = VideoRunner(inference, batch_size=batch)
 
     json_dir = _pathlib.Path(args.write_json) if args.write_json else None

@@ -5,7 +5,8 @@ Counterpart of the repository's `__graft_entry__.py`.  `entry()` returns
 `(fn, example_args)`: `fn(net, images)` is the BODY_25 pipeline on the
 device, VGG normalisation -> CNN forward -> Catmull-Rom resize of the 25
 part maps to the net's input size -> NMS (threshold 0.05, 127 peaks) ->
-PAF pair scores (the fused kernel at this budget), returning `(peaks [N,
+PAF pair scores (the fused kernel at this budget): the serving paths'
+decode, `pose/extractor.py::BodyDecoder`.  It returns `(peaks [N,
 25, 128, 3], scores [N, 26, 127, 127])`; `example_args` are the seeded
 random BODY_25 net and one black 368x656 image, both on the device.
 `dryrun_multichip` is `parallel/dryrun.py`'s, re-exported.
@@ -29,10 +30,11 @@ import torch
 
 from openpose_tpu_torch import device as device_rule
 from openpose_tpu_torch.models import zoo
-from openpose_tpu_torch.ops import nms, paf, resize
+from openpose_tpu_torch.ops import resize
 from openpose_tpu_torch.parallel import mesh as mesh_lib
 from openpose_tpu_torch.parallel.dryrun import dryrun_multichip
-from openpose_tpu_torch.params import PoseModel
+from openpose_tpu_torch.params import PoseModel, default_connect_params
+from openpose_tpu_torch.pose.extractor import BodyDecoder
 from openpose_tpu_torch.scripts.scaling_bench import (
     rank_device, require_cards, run_world)
 
@@ -52,18 +54,15 @@ def entry(device: Union[str, torch.device, None] = None,
     their defaults are the original's."""
     device = device_rule.resolve(device)
     model = zoo.load_pose_model(PoseModel.BODY_25, seed=0, device=device)
-    pairs, map_idx = (torch.from_numpy(t).to(device)
-                      for t in paf.pair_tables(model.info))
-    num_parts = model.info.num_parts
+    # BODY_25's default limits: NMS 0.05, PAF 0.05 and 0.95
+    decoder = BodyDecoder(model.info, 127,
+                          default_connect_params(PoseModel.BODY_25), False,
+                          device)
 
     @torch.inference_mode()
     def fn(net, images):
         out = net(resize.normalize_vgg(images), compute_dtype)
-        merged = resize.resize_bicubic(out[..., :num_parts], net_hw)
-        peaks = nms.nms(merged, 0.05, 127)
-        scores = paf.paf_scores_multiscale(
-            (out,), (1.0,), net_hw, peaks, pairs, map_idx, 0.05, 0.95, 0.05)
-        return peaks, scores
+        return decoder.decode([out], [1.0], net_hw, 0.5)
 
     example_args = (model.net, torch.zeros((1, *net_hw, 3),
                                            dtype=torch.float32, device=device))

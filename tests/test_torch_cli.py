@@ -266,15 +266,19 @@ def test_smooth_keyframes_equal_jax(tmp_path, inputs):
                              paths["theirs"]["--write_json"])
 
 
-def test_batched_fast_path_equals_jax(tmp_path, inputs):
+@pytest.mark.parametrize("flags", [[], ["--maximize_positives"]],
+                         ids=["default", "maximize_positives"])
+def test_batched_fast_path_equals_jax(tmp_path, inputs, flags):
     """--batch 2 over three files: the native pump, one batched device call
-    per two frames (the tail padded), threaded assembly."""
+    per two frames (the tail padded), threaded assembly; with
+    --maximize_positives the batched path assembles with the flag's limits
+    and passes, as JAX's runner does through its extractor."""
     if not native_loader.available():
         pytest.skip("native frame pump not built")
     args = cli.build_parser().parse_args(
-        ["--image_dir", inputs["images"], "--batch", "2"])
+        ["--image_dir", inputs["images"], "--batch", "2", *flags])
     assert cli.fast_path_eligible(args)
-    paths = run_both(tmp_path, inputs, ["--batch", "2"],
+    paths = run_both(tmp_path, inputs, ["--batch", "2", *flags],
                      {"--write_json": "json"})
     assert_people_json_close(paths["mine"]["--write_json"],
                              paths["theirs"]["--write_json"])

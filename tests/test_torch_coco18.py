@@ -91,7 +91,7 @@ def test_coco18_decode_equals_the_reference(cpu):
     pairs = torch.tensor(cfg["pairs"], dtype=torch.int32).reshape(-1, 2)
     map_idx = torch.tensor(cfg["map_idx"], dtype=torch.int32).reshape(
         -1, 2) + parts + 1
-    assert np.array_equal(pi._pairs_np, pairs.numpy())
+    assert np.array_equal(pi.decoder.pairs, pairs.numpy())
     for b in range(2):
         people = inputs.batch_people(SEED, b, traffic["batch"],
                                      tuple(traffic["people"]), hw)

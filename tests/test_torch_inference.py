@@ -258,7 +258,9 @@ def test_inference_takes_budget_and_thresholds(mpi):
     strict = PoseInference(port_model, net_hw=(64, 80), max_peaks=8,
                            nms_threshold=0.6, compute_dtype=torch.float32,
                            device="cpu")
-    assert loose.thresholds == (0.01, 0.05, 0.95)
+    cp = loose.decoder.connect
+    assert (cp.nms_threshold, cp.inter_threshold,
+            cp.inter_min_above_threshold) == (0.01, 0.05, 0.95)
     peaks_loose, scores = loose(frames)
     peaks_strict, _ = strict(frames)
     assert peaks_loose.shape == (2, 15, 9, 3) and scores.shape[-1] == 8

@@ -9,7 +9,9 @@ import pytest
 import torch
 
 from openpose_tpu.ops import nms as jnms
-from openpose_tpu_torch.ops import nms
+from openpose_tpu_torch import synthetic
+from openpose_tpu_torch.ops import nms, paf, resize
+from openpose_tpu_torch.params import POSE_MODEL_INFO, PoseModel
 from tests import oracle
 
 
@@ -89,3 +91,32 @@ def test_batched_channels_and_offset_match_jax():
     assert got.shape == want.shape == (2, 3, 17, 3)
     np.testing.assert_array_equal(got[:, :, 0], want[:, :, 0])
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("scene, lo, hi", [
+    ("noise", 127, 127), ("crowd_32", 16, 40), ("people_8", 4, 12)],
+    ids=["noise", "crowd_32", "people_8"])
+def test_worst_case_fills_every_part_at_the_published_size(scene, lo, hi):
+    """BODY_25 net outputs at 368x656 (46x82 maps), merged and NMS'd at
+    0.05 with 127 slots: uniform noise in [-1, 1) fills all 127 slots of
+    every part, while rendered people give far fewer peaks a part (a crowd
+    of 32 `random_people`, or 8)."""
+    info = POSE_MODEL_INFO[PoseModel.BODY_25]
+    hw = (368, 656)
+    if scene == "noise":
+        src = np.random.RandomState(3).uniform(
+            -1, 1, (1, hw[0] // 8, hw[1] // 8, info.heatmap_channels))
+    else:
+        n, spacing = (32, 30.0) if scene == "crowd_32" else (8, 90.0)
+        people = synthetic.random_people(np.random.RandomState(100), n, hw,
+                                         min_spacing=spacing)
+        pairs, map_idx = paf.pair_tables(info)
+        src = synthetic.make_targets(people[None], pairs, map_idx, hw,
+                                     info.num_parts, info.heatmap_channels)
+    src = torch.from_numpy(np.asarray(src, np.float32))
+    merged = resize.resize_bicubic(src[..., :info.num_parts], hw)
+    counts = nms.nms(merged, 0.05, 127)[0, :, 0, 0]
+    if scene == "noise":
+        assert bool((counts == 127).all()), counts
+    else:
+        assert lo <= float(counts.mean()) <= hi, counts

@@ -79,13 +79,13 @@ def test_extractor_scores_match_jax(models):
     from openpose_tpu.pose import scaler
     plan = scaler.extract_scales((80, 64), (80, 64))
     img = torch.from_numpy(image.astype(np.float32)[None])
-    peaks, scores = port.run_device(img, plan, 0.5)
+    peaks, scores = port.decode(port.net_outputs(img, plan), plan, 0.5)
     with torch.inference_mode():
         source = port_model.forward(resize.normalize_vgg(img), torch.float32)
     want = np.asarray(jpaf.paf_scores_multiscale(
         (jnp.asarray(source.numpy()),), (1.0,), (64, 80),
-        jnp.asarray(peaks.numpy()), jnp.asarray(port.pairs),
-        jnp.asarray(port.map_idx), 0.05, 0.95, 0.05, fast_peaks=0,
+        jnp.asarray(peaks.numpy()), jnp.asarray(port.decoder.pairs),
+        jnp.asarray(port.decoder.map_idx_dev.numpy()), 0.05, 0.95, 0.05, fast_peaks=0,
         use_pallas=False))
     assert (want > 0).any(), "the scene must have accepted pairs"
     np.testing.assert_allclose(scores.numpy(), want, rtol=1e-4, atol=1e-5)

@@ -81,7 +81,7 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
                     "utils.benchmark", "scripts.speed_test",
                     "scripts.profile_net", "scripts.profile_train_step",
                     "scripts.scaling_bench", "scripts.analyze_scaling",
-                    "entry", "bench",
+                    "entry",
                     "examples.01_body_from_image",
                     "examples.02_whole_body_from_image",
                     "examples.03_heatmaps_from_image",

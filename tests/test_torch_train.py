@@ -570,9 +570,9 @@ def test_serving_a_trained_net_records_no_graph(trained):
             + list(inference(frames))
         extractor = PoseExtractor(model, compute_dtype=torch.float32,
                                   device="cpu")
-        plan_outputs = extractor.run_device(
+        plan_outputs = extractor.decode(extractor.net_outputs(
             torch.from_numpy(frames[:1]).to(torch.float32),
-            inference.plan, 0.5)
+            inference.plan), inference.plan, 0.5)
         for t in outputs + list(plan_outputs):
             assert not t.requires_grad and t.grad_fn is None
         pred = extractor.forward(frames[0], net_resolution=(64, 48))
