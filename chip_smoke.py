@@ -123,13 +123,20 @@ with the epilogue phase: the convolutions' epilogue kernel bit-equal
 to its plain version on every convolution output of BODY_25 and COCO_18
 at 368x656 and FACE_70 and HAND_21 at 368x368, batch 1 and 8, and on edge
 values; every convolution of a bf16 serving forward fused; its time beside
-its byte bound and the plain sequence's.
+its byte bound and the plain sequence's; and the NMS phase: the NMS
+kernels bit-equal to the plain version on BODY_25's and COCO_18's merged
+maps at 368x656, batch 1 and 8 (1-4 rendered people a frame, a crowd of
+32, noise that fills 127 peaks a part), on refinement's 8 crops of
+368x368 and on edge values (maps of 1-5 pixels a side, NaN, infinities,
+both zeros, the threshold, plateaus); each shape's time replayed in a CUDA
+graph beside its byte bound and the plain version's.
 
 `python3 chip_smoke.py --capped-trace` runs the people-capped call alone,
 timed and traced (to set two trees side by side on one card).
 `python3 chip_smoke.py --graphs` runs the graph phase alone (about 40 s
 with the build).
 `python3 chip_smoke.py --epilogue` runs the epilogue phase alone.
+`python3 chip_smoke.py --nms` runs the NMS phase alone.
 `python3 chip_smoke.py --mesh-scaling` runs 1, 2 and 4 ranks, one per
 card, up to the cards there are: serving frames/s and train img/s of each
 world against one rank.
@@ -458,7 +465,7 @@ def kernel_phase(device, info, full_shape=(8, 46, 82, 127),
             "four_scales_ms": ms4, "four_scales_plain_ms": plain_ms4,
             "four_scales_bound": bound4, "refinement": refinement,
             "entry": at_entry, "post_inputs": on_post,
-            "epilogue": epilogue_phase(device)}
+            "epilogue": epilogue_phase(device), "nms": nms_phase(device)}
 
 
 def entry_check(device, net_hw):
@@ -482,7 +489,7 @@ def entry_check(device, net_hw):
     if device.type == "cuda":
         assert out["launches_per_call"] == {
             "paf_scores_fused": 1, "sample_bicubic_scales": 0,
-            "bias_act": len(net.epilogues)}, out
+            "bias_act": len(net.epilogues), "nms": 1}, out
     pairs, map_idx = (torch.from_numpy(t).to(device) for t in
                       paf.pair_tables(POSE_MODEL_INFO[PoseModel.BODY_25]))
     with torch.inference_mode():
@@ -846,6 +853,207 @@ def _epilogue_training(device, shape, rng):
             "launches": got["launches"], "plain_launches": want["launches"]}
 
 
+# NMS (`ops/nms.py`, `kernels/nms.cu`) is held to its plain version and
+# timed on the merged part maps of BODY_25 (25 parts) and COCO_18 (18) at
+# 368x656, batch 1 and 8, for each input, and on top-down refinement's
+# crops (`pose/refine.py`: up to 8 people at 368x368, threshold 0.02, no
+# offset); then on edge values at small shapes.
+NMS_MODELS = ("BODY_25", "COCO_18")
+NMS_SCENES = ("people_1_4", "crowd_32", "noise")
+NMS_CROP = ("BODY_25", "crop_1", 8, (368, 368), 0.02, (0.0, 0.0))
+# COCO_18's parts as BODY_25's (perfbench's `keypoints_from_body25`)
+COCO18_FROM_BODY25 = (0, 1, 2, 3, 4, 5, 6, 7, 9, 10, 11, 12, 13, 14, 15, 16,
+                      17, 18)
+# a timed shape cycles through copies of its maps that together hold this
+# many times the card's L2, so that each call reads device memory, as its
+# byte bound assumes
+NMS_COLD_L2S = 4
+
+
+def _nms_maps(device, model, scene, batch, net_hw, rng):
+    """[batch, H, W, parts] float32 merged maps on the device, resized from
+    net outputs at 1/8 of net_hw as the decode merges them: rendered people
+    (1-4 a frame, a crowd of 32, or one tall person a crop) or uniform
+    noise in [-1, 1)."""
+    import numpy as np
+    import torch
+    from openpose_tpu_torch import synthetic
+    from openpose_tpu_torch.ops import paf, resize
+    from openpose_tpu_torch.params import POSE_MODEL_INFO, PoseModel
+    info = POSE_MODEL_INFO[PoseModel[model]]
+    low = (net_hw[0] // 8, net_hw[1] // 8)
+    if scene == "noise":
+        src = rng.uniform(-1, 1, (batch, *low, info.num_parts))
+    else:
+        most = {"people_1_4": 4, "crowd_32": 32, "crop_1": 1}[scene]
+        people = np.zeros((batch, most, 25, 3), np.float32)
+        for b in range(batch):
+            count = rng.randint(1, 5) if scene == "people_1_4" else most
+            people[b, :count] = synthetic.random_people(
+                rng, count, net_hw, min_spacing=30.0 if most == 32 else 90.0,
+                height_range=(250.0, 330.0) if scene == "crop_1"
+                else (180.0, 300.0))
+        if model == "COCO_18":
+            people = people[:, :, list(COCO18_FROM_BODY25)]
+        pairs, map_idx = paf.pair_tables(info)
+        src = synthetic.make_targets(people, pairs, map_idx, net_hw,
+                                     info.num_parts, info.heatmap_channels)
+        src = src[..., :info.num_parts]
+    src = torch.from_numpy(np.asarray(src, np.float32)).to(device)
+    with torch.inference_mode():
+        return resize.resize_bicubic(src, net_hw)
+
+
+def _same_bits(got, want):
+    """Whether two float32 tensors hold the same bits, any NaN matching any
+    NaN (a NaN's payload is the hardware's)."""
+    import torch
+    return got.shape == want.shape and bool(
+        ((got.view(torch.int32) == want.view(torch.int32))
+         | (got.isnan() & want.isnan())).all())
+
+
+def _nms_edge_cases(rng):
+    """(name, [N, H, W, C] float32 maps, threshold, max_peaks, offset):
+    maps of 1-5 pixels a side, the (y=0, x=1) candidate, plateaus on each
+    ring and inside, the cap, and NaN, infinities, both zeros, the
+    threshold itself and huge values scattered over noise."""
+    import numpy as np
+    cases = []
+    for h, w in itertools.product(range(1, 6), repeat=2):
+        cases.append((f"tiny {h}x{w}", rng.uniform(
+            -0.2, 1.0, (2, h, w, 3)).astype(np.float32), 0.05, 4,
+            (0.5, 0.5)))
+    corner = np.zeros((1, 12, 12, 2), np.float32)
+    corner[0, 0, 1, 0] = 0.5
+    corner[0, 1, 0, 1] = 0.5
+    cases.append(("y=0 x=1 candidate", corner, 0.05, 10, (0.5, 0.5)))
+    flat = np.zeros((1, 16, 16, 2), np.float32)
+    flat[0, 5:8, 5:8] = 0.7
+    flat[0, 1, 1:4] = 0.4
+    flat[0, 0, :, 1] = 0.6
+    flat[0, 14, 3:5, 0] = 0.3
+    cases.append(("plateaus", flat, 0.05, 8, (0.5, 0.5)))
+    grid = np.zeros((1, 30, 30, 1), np.float32)
+    grid[0, 2:28:3, 2:28:3] = 1.0
+    cases.append(("cap keeps row-major order", grid, 0.05, 5, (0.5, 0.5)))
+    # rows of more than 32 mask words, the last one partial; more channels
+    # than one block of the first pass takes
+    cases.append(("wide rows", rng.uniform(-1, 1, (2, 6, 1100, 3)).astype(
+        np.float32), 0.05, 127, (0.5, 0.5)))
+    cases.append(("70 channels", rng.uniform(-1, 1, (2, 11, 70, 70)).astype(
+        np.float32), 0.05, 30, (0.5, 0.5)))
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 0.05, 1e30,
+                        -1e30, 3.4e38], np.float32)
+    for thr, k, offset in ((0.05, 127, (0.5, 0.5)), (0.0, 7, (0.0, 0.0)),
+                           (0.05, 0, (0.5, 0.5))):
+        e = rng.uniform(-1, 1, (2, 20, 24, 5)).astype(np.float32)
+        at = rng.randint(0, e.size, 80)
+        e.flat[at] = special[rng.randint(0, special.size, at.size)]
+        e[1, 3:6, 3:6, 2] = np.float32(thr)         # a plateau at the threshold
+        cases.append((f"edge values thr={thr} K={k}", e, thr, k, offset))
+    return cases
+
+
+def nms_phase(device, models=NMS_MODELS, scenes=NMS_SCENES, batches=(1, 8),
+              net_hw=(368, 656), crop=NMS_CROP, iters=20, max_peaks=127):
+    """The NMS kernels (`ops/nms.py::nms`, `kernels/nms.cu`) against the
+    plain version (`nms.plain`) on the card, bit for bit: (a) each model's
+    merged maps at net_hw, each batch, each scene, and refinement's crops,
+    each timed replayed in a CUDA graph beside the plain version, on copies
+    no longer in the L2, with its share of the byte bound (the maps read
+    once, the peaks written once) and each version's device operations a
+    call; (b) the edge cases of `_nms_edge_cases`; (c) a call counts
+    `nms.fused` once in the tracer and launches once."""
+    import numpy as np
+    import torch
+    from openpose_tpu_torch.ops import nms
+    from openpose_tpu_torch.utils.profiler import TRACE
+
+    rng = np.random.RandomState(22)
+    l2_bytes = torch.cuda.get_device_properties(device).L2_cache_size \
+        if device.type == "cuda" else 1 << 20
+    shapes = [(m, s, b, net_hw, 0.05, (0.5, 0.5)) for m, b, s in
+              itertools.product(models, batches, scenes)]
+    if crop is not None:
+        shapes.append(crop)
+    rows = []
+    for model, scene, batch, hw, thr, offset in shapes:
+        maps = _nms_maps(device, model, scene, batch, hw, rng)
+        with torch.inference_mode():
+            want = nms.plain(maps, thr, max_peaks, offset)
+            got = nms.nms(maps, thr, max_peaks, offset)
+        n_bytes = maps.numel() * 4 + want.numel() * 4
+        copies = -(-NMS_COLD_L2S * l2_bytes // (maps.numel() * 4))
+        xs = [maps.clone() for _ in range(copies)]
+        calls = itertools.count()
+
+        def on_kernel():
+            return nms.nms(xs[next(calls) % copies], thr, max_peaks, offset)
+
+        def on_plain():
+            return nms.plain(xs[next(calls) % copies], thr, max_peaks,
+                             offset)
+        reps = max(iters, copies)
+        bound_ms, bound_by = roofline_ms(n_bytes, 0, H100_SXM)
+        with torch.inference_mode():
+            row = {"model": model, "scene": scene, "shape": list(maps.shape),
+                   "threshold": thr, "offset": list(offset),
+                   "peaks_per_part_mean": float(want[:, :, 0, 0].mean()),
+                   "bit_equal": _same_bits(got, want), "copies": copies,
+                   "graph_ms": _graph_ms(on_kernel, reps, device),
+                   "plain_graph_ms": _graph_ms(on_plain, reps, device),
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            kernel_ops = device_busy(on_kernel, 3)
+            plain_ops = device_busy(on_plain, 3)
+        row["share_of_bound"] = bound_ms / row["graph_ms"]
+        row["kernel_device_ops"] = (kernel_ops or {}).get(
+            "device_launches_per_call")
+        row["kernel_top"] = (kernel_ops or {}).get("top_kernels_ms_per_call")
+        row["plain_device_ops"] = (plain_ops or {}).get(
+            "device_launches_per_call")
+        log(f"nms (a): {json.dumps(row)}")
+        rows.append(row)
+        del xs, maps
+
+    edges = {}
+    for name, heat, thr, k, offset in _nms_edge_cases(rng):
+        maps = torch.from_numpy(heat).to(device)
+        with torch.inference_mode():
+            edges[name] = _same_bits(nms.nms(maps, thr, k, offset),
+                                     nms.plain(maps, thr, k, offset))
+    # maps that start 4 bytes past a 16-byte boundary (a view)
+    heat = torch.from_numpy(rng.uniform(-1, 1, 1 + 2 * 9 * 13 * 5).astype(
+        np.float32)).to(device)[1:].view(2, 9, 13, 5)
+    with torch.inference_mode():
+        edges["unaligned view"] = _same_bits(nms.nms(heat, 0.05, 20),
+                                             nms.plain(heat, 0.05, 20))
+    log(f"nms (b): edge cases bit-equal {edges}")
+
+    maps = _nms_maps(device, models[0], scenes[0], 1, net_hw, rng)
+    before = nms.nms.launches
+    TRACE.drain()
+    TRACE.enable()
+    try:
+        with torch.inference_mode():
+            nms.nms(maps, 0.05, max_peaks)
+        counters = TRACE.drain()["counters"]
+    finally:
+        TRACE.disable()
+    engaged = {"counters": counters, "launches": nms.nms.launches - before}
+    log(f"nms (c): one call {engaged}")
+
+    unequal = [r for r in rows if not r["bit_equal"]]
+    assert not unequal, f"the NMS kernels differ from the plain version: " \
+        f"{unequal}"
+    assert all(edges.values()), f"the NMS kernels differ on edges: {edges}"
+    assert engaged == {"counters": {nms.FUSED: 1}, "launches": 1}, engaged
+    for r in rows:
+        if r["scene"] == "noise" and r["shape"][1:3] == [368, 656]:
+            assert r["peaks_per_part_mean"] == max_peaks, r
+    return {"timed": rows, "edges": edges, "engaged": engaged}
+
+
 def refinement_kernel_cases(device, info, both, rng, n=8, k=127,
                             crop_hw=(368, 368)):
     """The fused kernel at the shape top-down refinement gives it
@@ -1075,14 +1283,15 @@ def graph_phase(device, model, net_hw=(368, 656), batches=(1, 8),
     `pose.net.stages` in `pose.net`; one fused launch a call, replayed or
     not; an output held across the next call unchanged; the host's ms a
     call (the dispatch, no sync) and the card's (CUDA events), eager
-    against replay.  Then the same equality with net_bypass (rendered
+    against replay; the NMS kernels counted and launched once a decode
+    call, as the fused scorer.  Then the same equality with net_bypass (rendered
     people), at 2 scales of raw 720x1280 frames and, with a second card,
     on cuda:1 while another card is the current device."""
     import numpy as np
     import torch
     from openpose_tpu_torch import synthetic
     from openpose_tpu_torch.models import graph, zoo
-    from openpose_tpu_torch.ops import paf
+    from openpose_tpu_torch.ops import nms, paf
     from openpose_tpu_torch.parallel import graphs
     from openpose_tpu_torch.parallel.inference import PoseInference
     from openpose_tpu_torch.params import PoseModel
@@ -1118,9 +1327,11 @@ def graph_phase(device, model, net_hw=(368, 656), batches=(1, 8),
             TRACE.disable()
         counters, spans = drained["counters"], drained["spans"]
         n_bodies = 1 if inference.net_bypass else 2
+        # the decode's NMS kernels, counted in the eager call and the
+        # capture, as the epilogue below
         want_counters = {"pose.graph.eager": n_bodies,
                          "pose.graph.captures": n_bodies,
-                         "pose.graph.replays": 3 * n_bodies}
+                         "pose.graph.replays": 3 * n_bodies, nms.FUSED: 2}
         n_scales = len(inference.plan.scale_input_to_net)
         if not inference.net_bypass:
             # every convolution's epilogue kernel, once a scale in the
@@ -1166,12 +1377,12 @@ def graph_phase(device, model, net_hw=(368, 656), batches=(1, 8),
                                   frames, other)
         per_call = launches_per_call(f"graphs, {net_name} batch {batch}",
                                      call)
-        # a replay adds what its capture launched: the fused scorer once,
-        # the epilogue once a convolution and scale
+        # a replay adds what its capture launched: the fused scorer and the
+        # NMS kernels once, the epilogue once a convolution and scale
         n_convs = len(inference.plan.scale_input_to_net) * len(
             inference.net.epilogues)
         assert per_call == {"paf_scores_fused": 1, "sample_bicubic_scales": 0,
-                            "bias_act": n_convs}, per_call
+                            "bias_act": n_convs, "nms": 1}, per_call
         res = {"max_abs_diff": diff, "launches_per_call": per_call}
         for name, fn in (("eager", eager), ("replay", call)):
             fn()
@@ -4037,6 +4248,9 @@ def main() -> int:
     if sys.argv[1:] == ["--epilogue"]:
         log(json.dumps({"epilogue": epilogue_phase(device)}))
         return 0
+    if sys.argv[1:] == ["--nms"]:
+        log(json.dumps({"nms": nms_phase(device)}))
+        return 0
     report["kernel"] = kernel_phase(device, model.info)
     report["sampler"] = sampler_phase(device)
     report["main_path"] = main_path_phase(device, model)
@@ -4065,6 +4279,9 @@ def main() -> int:
 
     kernel, sampler = report["kernel"], report["sampler"]
     epilogue = kernel["epilogue"]
+    nms_rows = kernel["nms"]["timed"]
+    nms_row = next(r for r in nms_rows if r["model"] == "BODY_25"
+                   and r["scene"] == "noise" and r["shape"][0] == 8)
     source = "openpose_tpu_torch/kernels/paf_score.cu"
     # library_ms is null for both: no one PyTorch call computes either
     # function (`F.grid_sample(mode="bicubic")` uses the cubic coefficient
@@ -4112,7 +4329,22 @@ def main() -> int:
         "ms": epilogue["timed"][0]["ms"],
         "plain_ms": epilogue["timed"][0]["plain_ms"],
         "bound_ms": epilogue["timed"][0]["bound_ms"],
-        "bound_by": epilogue["timed"][0]["bound_by"], "library_ms": None}]}))
+        "bound_by": epilogue["timed"][0]["bound_by"], "library_ms": None}, {
+        # no TPU kernel: the JAX package's NMS is plain jnp; a call runs
+        # nms_count_kernel, nms_place_kernel and nms_refine_kernel; timed
+        # replayed in a graph on BODY_25's noise maps at batch 8, 368x656
+        "name": "nms_kernels", "route": "cuda",
+        "source": "openpose_tpu_torch/kernels/nms.cu", "replaces": None,
+        "launches": sum(report[phase]["launches"]["nms"]
+                        for phase in ("main_path", "people_capped",
+                                      "whole_body", "wrapper", "runner",
+                                      "accuracy", "train", "cli", "tools",
+                                      "mesh", "threed", "timing")),
+        "max_abs_err": 0.0 if all(r["bit_equal"] for r in nms_rows)
+        else None,
+        "ms": nms_row["graph_ms"], "plain_ms": nms_row["plain_graph_ms"],
+        "bound_ms": nms_row["bound_ms"], "bound_by": nms_row["bound_by"],
+        "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

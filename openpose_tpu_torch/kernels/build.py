@@ -20,12 +20,14 @@ import threading
 from typing import Optional
 
 KERNEL_DIR = pathlib.Path(__file__).resolve().parent
-SOURCES = (KERNEL_DIR / "paf_score.cu", KERNEL_DIR / "conv_epilogue.cu")
+SOURCES = (KERNEL_DIR / "paf_score.cu", KERNEL_DIR / "conv_epilogue.cu",
+           KERNEL_DIR / "nms.cu")
 BUILD_DIR = KERNEL_DIR.parent.parent / "build" / "openpose_tpu_torch"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # every multiply and add rounds on its own, as in the plain PyTorch
-    # versions the kernels are held to (see paf_score.cu, conv_epilogue.cu)
+    # versions the kernels are held to (see paf_score.cu, conv_epilogue.cu,
+    # nms.cu)
     "-fmad=false",
     "--ptxas-options=-v", "-shared", "-Xcompiler", "-fPIC")
 
@@ -102,6 +104,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i64, i32, i32, i32,                       # pixels C act vec
         i32, vp]                                  # device, stream
     lib.conv_epilogue_launch.restype = i32
+    lib.nms_peaks_launch.argtypes = [
+        vp, vp, vp, vp, vp, vp,                   # heat masks peaks windows
+        i32, i32, i32, i32, i32, f64,             # n h w C K threshold
+        i32, vp]                                  # device, stream
+    lib.nms_peaks_launch.restype = i32
+    lib.nms_refine_launch.argtypes = [
+        vp, vp, vp, vp, i64, i32, f64, f64,       # sums peaks slots K offset
+        i32, vp]                                  # device, stream
+    lib.nms_refine_launch.restype = i32
     lib.paf_score_error_string.argtypes = [i32]
     lib.paf_score_error_string.restype = ctypes.c_char_p
     return lib

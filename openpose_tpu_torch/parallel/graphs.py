@@ -27,10 +27,10 @@ captured on, and replayed to, the wrong card.
 A graph reads the net's weights where they are, so an update in place (an
 optimizer step, `load_state_dict`) shows in the next replay.
 
-The kernel wrappers' launch counters (`paf_cuda`'s and
-`conv_epilogue.bias_act`'s `launches`) count launches on the device: a
-capture launches nothing, so it leaves them as they were, and each replay
-adds what the capture's stages launched.
+The kernel wrappers' launch counters (`paf_cuda`'s,
+`conv_epilogue.bias_act`'s and `nms.nms`'s `launches`) count launches on
+the device: a capture launches nothing, so it leaves them as they were,
+and each replay adds what the capture's stages launched.
 Counters (`utils/profiler.py::TRACE`): `pose.graph.captures`,
 `pose.graph.replays` and `pose.graph.eager`, once per call of a body; a
 capturing call counts a capture and a replay.
@@ -44,12 +44,12 @@ from typing import Callable, Dict, List, Sequence
 import torch
 from torch.overrides import TorchFunctionMode
 
-from openpose_tpu_torch.ops import conv_epilogue, paf_cuda
+from openpose_tpu_torch.ops import conv_epilogue, nms, paf_cuda
 from openpose_tpu_torch.utils.profiler import TRACE
 
 # the hand kernels' wrappers, whose launch counters a replay passes by
 COUNTED = (paf_cuda.paf_scores_fused, paf_cuda.sample_bicubic_scales,
-           conv_epilogue.bias_act)
+           conv_epilogue.bias_act, nms.nms)
 
 
 def eager_stage(name):

@@ -38,7 +38,7 @@ from openpose_tpu.parallel import mesh as mesh_lib
 from openpose_tpu.parallel.inference import ShardedPoseInference
 from openpose_tpu.pose.extractor import PoseExtractor as JaxPoseExtractor
 from openpose_tpu_torch.models import checkpoint, graph, zoo
-from openpose_tpu_torch.ops import paf_cuda
+from openpose_tpu_torch.ops import nms, paf_cuda
 from openpose_tpu_torch.parallel import graphs
 from openpose_tpu_torch.parallel.inference import PoseInference
 from openpose_tpu_torch.pose.extractor import PoseExtractor
@@ -287,7 +287,8 @@ def test_graph_gate_keeps_cpu_calls_eager(mpi, tracer):
     is kept, the outputs equal the bodies' bit for bit, and
     `pose.graph.eager` counts each call of net_outputs and decode; a
     net_bypass net_outputs (an upload and a cast) counts nothing.  Every
-    convolution of each scale's CNN counts its plain epilogue."""
+    convolution of each scale's CNN counts its plain epilogue, and each
+    decode its plain NMS."""
     _, port_model = mpi
     rng = np.random.RandomState(6)
     frames = rng.randint(0, 255, (2, 64, 80, 3)).astype(np.uint8)
@@ -305,13 +306,15 @@ def test_graph_gate_keeps_cpu_calls_eager(mpi, tracer):
     n_convs = len(graph.epilogue_plan(port_model.spec))
     assert tracer.drain()["counters"] == {
         "pose.graph.eager": 6,
-        graph.EPILOGUE_PLAIN: 3 * MPI_KW["scale_number"] * n_convs}
+        graph.EPILOGUE_PLAIN: 3 * MPI_KW["scale_number"] * n_convs,
+        nms.PLAIN: 3}
 
     bypass = PoseInference(port_model, net_hw=(64, 80), net_bypass=True,
                            device="cpu")
     maps = rng.uniform(-0.2, 1.0, (2, 8, 10, 44)).astype(np.float32)
     bypass.decode(bypass.net_outputs(maps))
-    assert tracer.drain()["counters"] == {"pose.graph.eager": 1}
+    assert tracer.drain()["counters"] == {"pose.graph.eager": 1,
+                                          nms.PLAIN: 1}
 
 
 def test_graph_gate_refuses_a_model_sharded_mesh():
@@ -485,7 +488,8 @@ def test_graph_output_held_across_the_next_call(card, card_body25):
 def test_graph_counters_on_card(card, card_body25, tracer):
     """N calls of one shape: one eager call, one capture, N - 1 replays,
     for net_outputs and decode each; the eager call and the capture run
-    every convolution's epilogue kernel on the host, the replays nothing."""
+    every convolution's epilogue kernel and the NMS kernels on the host, the
+    replays nothing."""
     kw, (inputs, _) = _card_case("batch1", np.random.RandomState(9))
     inf = PoseInference(card_body25, device=card, **kw)
     n = 5
@@ -494,7 +498,8 @@ def test_graph_counters_on_card(card, card_body25, tracer):
     assert tracer.drain()["counters"] == {
         "pose.graph.eager": 2, "pose.graph.captures": 2,
         "pose.graph.replays": 2 * (n - 1),
-        graph.EPILOGUE_FUSED: 2 * len(card_body25.net.epilogues)}
+        graph.EPILOGUE_FUSED: 2 * len(card_body25.net.epilogues),
+        nms.FUSED: 2}
 
 
 def test_graph_replay_counts_fused_launches(card, card_body25):

@@ -23,7 +23,7 @@ import torch
 from openpose_tpu_torch import cli, synthetic
 from openpose_tpu_torch.io import native_loader
 from openpose_tpu_torch.models import graph, zoo
-from openpose_tpu_torch.ops import paf
+from openpose_tpu_torch.ops import nms, paf
 from openpose_tpu_torch.parallel.inference import (
     PoseInference, TopDownInference)
 from openpose_tpu_torch.runtime.whole_body import WholeBodyInference
@@ -167,9 +167,11 @@ def test_pose_spans_once_a_call_with_parent_and_step(scene):
         ("pose.fetch.wait", None, step)] + [
         ("pose.assemble", None, step)] * BATCH
     # the CNN's call and the decode's, both eager: the CPU replays no graph;
-    # every convolution of the CNN takes the plain epilogue
+    # every convolution of the CNN takes the plain epilogue, the decode the
+    # plain NMS
     assert got["counters"] == {"pose.graph.eager": 2,
-                               graph.EPILOGUE_PLAIN: _convs(scene["cnn"])}
+                               graph.EPILOGUE_PLAIN: _convs(scene["cnn"]),
+                               nms.PLAIN: 1}
 
 
 def test_whole_body_spans_and_crop_counters(scene):
@@ -203,7 +205,8 @@ def test_whole_body_spans_and_crop_counters(scene):
     assert got["counters"] == {
         "topdown.crops_computed": BATCH * most * 3,
         "topdown.crops_active": total * 3, "pose.graph.eager": 2,
-        graph.EPILOGUE_PLAIN: _convs(scene["cnn"], whole.face, whole.hand)}
+        graph.EPILOGUE_PLAIN: _convs(scene["cnn"], whole.face, whole.hand),
+        nms.PLAIN: 1}
 
 
 @pytest.mark.parametrize("what", sorted(STEPS))
@@ -400,15 +403,17 @@ def test_profile_speed_prints_span_averages_on_the_batched_path(
     counts = [counter.match(ln).groups() for ln in lines
               if counter.match(ln)]
     assert {name for name, _ in counts} == {
-        "pose.graph.eager", graph.EPILOGUE_PLAIN}, lines
+        "pose.graph.eager", graph.EPILOGUE_PLAIN, nms.PLAIN}, lines
     eager = [int(n) for name, n in counts if name == "pose.graph.eager"]
     # the CPU runs every call eagerly: two batches, a CNN and a decode each
     assert eager and eager[-1] == 4, lines
     # and every convolution of the two batches' BODY_25 CNN runs its
-    # epilogue's plain version
+    # epilogue's plain version, each decode the plain NMS
     plain = [int(n) for name, n in counts if name == graph.EPILOGUE_PLAIN]
     n_convs = len(graph.epilogue_plan(graph.load_spec("body_25")))
     assert plain and plain[-1] == 2 * n_convs, lines
+    plain_nms = [int(n) for name, n in counts if name == nms.PLAIN]
+    assert plain_nms and plain_nms[-1] == 2, lines
     parsed = [line.match(ln) for ln in lines if not counter.match(ln)]
     assert all(parsed), lines
     # after frame 2, then at the end: every span of the batched path twice
